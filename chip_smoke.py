@@ -1,11 +1,17 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path — the Beneš–Bernoulli N=15 central-moment
-filter, T=100, B=4096, TME-2 Normal-closure transitions, with the
-divergence rescue (tier 1: the same filter with Gram jitter 1e-8 in
-512-trial buckets; tier 2: the f64 ``stable=True`` LAPACK path on the
-card) — and holds every CUDA kernel of that path against its plain
-PyTorch version.
+Drives the port's two main paths and holds every CUDA kernel on them
+against its plain PyTorch version:
+
+- 1D: the Beneš–Bernoulli N=15 central-moment filter, T=100, B=4096,
+  TME-2 Normal-closure transitions, with the divergence rescue (tier 1:
+  the same filter with Gram jitter 1e-8 in 512-trial buckets; tier 2:
+  the f64 ``stable=True`` LAPACK path on the card), through K1
+  (``csrc/quadrature_1d.cu``);
+- ND: the 2D prey–predator central-moment filter with the polynomial
+  TME-2, B=1024, T=2000, at N=7 through K3 + cuSOLVER eigh and at N=3
+  through K2 (``csrc/quadrature_nd.cu``), with 64 trials re-run on the
+  CPU through the plain versions in worker processes.
 
     python3 chip_smoke.py
 
@@ -16,6 +22,7 @@ last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU and ``nvcc``
 (``/usr/local/cuda/bin`` or on ``PATH``); imports nothing of JAX.
 """
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -35,6 +42,7 @@ FORCED_LOST = 600  # > one tier-1 bucket: the forced rescue runs two
 # scalar FP64 code, so the FP64 tensor-core rate does not apply.
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOP_PER_S = 34e12
+SPIN_CYCLES = 200_000_000  # ~0.1 s at the H100's ~1.98 GHz boost clock
 
 
 def emit(phase, **fields):
@@ -42,12 +50,17 @@ def emit(phase, **fields):
 
 
 def cuda_ms(fn, reps, warmup=2):
-    """Mean device time per call, by CUDA events around ``reps`` calls."""
+    """Mean device time per call, by CUDA events around ``reps`` calls.
+    A spin kernel (~0.1 s) queued before the start event keeps the card
+    busy while the calls are enqueued, so a kernel shorter than its
+    wrapper's host time is timed back to back, not at the host's enqueue
+    rate (a host-bound version is still timed at its own pace)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -117,13 +130,22 @@ def phase_device():
     return smi
 
 
+def _ptxas(log):
+    return [ln.strip() for ln in log.splitlines()
+            if "Function properties" in ln or "Used" in ln or "stack" in ln]
+
+
 def phase_build():
+    """Both kernel sources, one nvcc each, started together; a library
+    already built from the same source is reused, and its ptxas report
+    is read from the log saved beside it."""
     from mfs_tpu_torch.ops import build
+    names = ("quadrature_1d", "quadrature_nd")
     t0 = time.perf_counter()
-    logs = build.build(["quadrature_1d"])
-    emit("build", seconds=time.perf_counter() - t0,
-         ptxas={k: [ln.strip() for ln in v.splitlines() if "Used" in ln or "stack" in ln]
-                for k, v in logs.items()})
+    logs = build.build(names)
+    seconds = time.perf_counter() - t0
+    emit("build", seconds=seconds, cached=[n for n in names if n not in logs],
+         ptxas={n: _ptxas(logs.get(n) or build.saved_log(n)) for n in names})
 
 
 def phase_kernel_vs_plain():
@@ -455,34 +477,438 @@ def phase_profile(model, trans):
          top_kernels_ms=[[k[:60], v / 1e3] for k, v in top])
 
 
+# ---------------------------------------------------------------------------
+# The ND path: 2D prey–predator, central moments, polynomial TME-2
+# ---------------------------------------------------------------------------
+
+ND_B = 1024
+ND_T = 2000
+ND_ORDERS = (7, 3)  # N=7: s=28, K3 + f64 eigh; N=3: s=6, K2
+ND_SUBSTEPS = 10  # Milstein sub-steps per observation (the model's own 100 is cut)
+ND_CPU_SUBSET = 64
+# The least finite share each order must keep over T=2000, just below the
+# card's reading (0.540 at N=7, 0.976 at N=3).  The JAX package's f64
+# filter loses the same trials at the same steps on the CPU
+# (tests/nd_divergence_vs_jax.py), so these losses are the f64 filter's,
+# not the port's.
+ND_FINITE_MIN = {7: 0.53, 3: 0.96}
+
+
+def k3_flops(s, d):
+    """FP64 operations K3 does per trial, counted from
+    ``csrc/quadrature_nd.cu::nd_k_kernel`` (add, sub, mul, div, sqrt one
+    each; nothing depends on the data)."""
+    equil = 2 * s + 2 * s * s
+    ldl = sum((s - j) * 3 * j + 3 + (s - 1 - j) for j in range(s))
+    per_dim = 2 * s * s + 2 * s * s * (s - 1) + 6 * s * s
+    return equil + ldl + d * per_dim
+
+
+def k2_flops(s, d, sweeps):
+    """FP64 operations K2 does on one trial whose d Jacobi runs took
+    ``sweeps`` (a list of d counts), from ``csrc/quadrature_nd.cu::
+    nd_eigh_kernel``.  The LDL is counted once per trial, though each of
+    the trial's d threads repeats it."""
+    equil = 2 * s
+    ldl = sum((s - j) * (2 + 3 * j) + 2 + (s - 1 - j) for j in range(s))
+    solves = s * sum(3 * r + 3 for r in range(s)) + s * sum(3 * r + 1 for r in range(s))
+    sym = s * (s - 1)
+    check = 3 * s * s
+    sweep = check + s * (s - 1) // 2 * (14 + 18 * s)
+    jacobi = sum(n * sweep + check for n in sweeps)
+    return equil + ldl + d * (solves + sym) + jacobi
+
+
+def nd_mixture_moments(N, d, B, rng, device):
+    """The filter's regime: central moments (orders <= 2N-1) of equal
+    two-Gaussian mixtures with means +-a (|a| ~ 0.03) and covariances of
+    order 1e-3, one mixture per trial."""
+    from mfs_tpu_torch.multi_dims import multi_indices as nd_mi
+    from mfs_tpu_torch.multi_dims.moments import raw_moments_mvn_kan_all
+    mis = nd_mi.generate_graded_lexico_multi_indices(d, 2 * N - 1)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
+    a = t(0.03 * rng.randn(B, d))
+    ms = 0
+    for sign in (-1.0, 1.0):
+        L = t(0.02 * rng.randn(B, d, d)) + t(0.03 * (1 + rng.rand(B, d))).diag_embed()
+        ms = ms + 0.5 * raw_moments_mvn_kan_all(sign * a, L @ L.mT, mis)
+    return ms, mis, nd_mi.gram_and_hankel_indices_graded_lexico(N, d)
+
+
+def _rel_reproduction(w, x, ms, mis):
+    """Per trial: max over moments of |sum_k w_k x_k^a - m_a| relative to
+    sum_k |w_k x_k^a|."""
+    from mfs_tpu_torch.multi_dims.moments import monomials_nd
+    mono = monomials_nd(x, mis)
+    got = torch.einsum("bmz,bm->bz", mono, w)
+    denom = torch.einsum("bmz,bm->bz", mono.abs(), w.abs())
+    return ((got - ms).abs() / denom).amax(-1)
+
+
+def equilibrated_gram_cond(ms, inds):
+    """Per trial: the 2-norm condition number of the equilibrated Gram
+    c_i G_ij c_j, c_j = 1/sqrt(G_jj), that both kernels factorise."""
+    G = ms[:, torch.as_tensor(inds[0], device=ms.device)]
+    c = torch.diagonal(G, dim1=-2, dim2=-1).clamp_min(1e-30).rsqrt()
+    return torch.linalg.cond(c[:, :, None] * G * c[:, None, :])
+
+
+def conditioned_tol(ms, inds, K):
+    """Per trial, the gap allowed between a kernel and its plain version:
+    max|K| (1e-13 + 10 eps cond(G')).  The kernels contract a*b+c to FMA
+    and the plain versions do not; the factorisation amplifies that
+    last-bit difference by the equilibrated Gram's conditioning, which in
+    the filter's regime reaches ~1e7 at s=10 and ~1e10 at s=28."""
+    kmax = K.flatten(1).abs().amax(-1)
+    return kmax * (1e-13 + 10 * 2.2e-16 * equilibrated_gram_cond(ms, inds))
+
+
+def k2_checks(ms, mis, inds, vals, vecs, vals_plain):
+    """K2's rotation-free checks against its plain version, per trial
+    finite in both: sorted eigenvalue gap and residual ||K V - V diag(vals)||
+    (K from the plain version, in K2's order of the solves) over the
+    conditioned tolerance, the orthonormality of V, and the rule's moment
+    reproduction."""
+    from mfs_tpu_torch.multi_dims.quadrature import moment_quadrature_nd
+    from mfs_tpu_torch.ops import quadrature_nd_kernel as qnd
+    s = inds.shape[1]
+    K = qnd.nd_eigh_operators_plain(ms, inds)
+    ok = (torch.isfinite(K).flatten(1).all(-1) & torch.isfinite(vals).flatten(1).all(-1)
+          & torch.isfinite(vals_plain).flatten(1).all(-1))
+    tol = conditioned_tol(ms[ok], inds, K[ok])[:, None]
+    eye = torch.eye(s, dtype=torch.float64, device=ms.device)
+    gap = (vals.sort(-1)[0] - vals_plain.sort(-1)[0])[ok].flatten(1).abs().amax(-1)
+    resid = (K @ vecs - vecs * vals[..., None, :])[ok].flatten(1).abs().amax(-1)
+    w, x = moment_quadrature_nd(ms, inds, eigh_impl="fused")
+    return ok, dict(
+        max_eigenvalue_gap=gap.max().item(), max_eigenvalue_gap_over_tol=(gap / tol[:, 0]).max().item(),
+        max_residual=resid.max().item(), max_residual_over_tol=(resid / tol[:, 0]).max().item(),
+        max_orthonormality_gap=(vecs.mT @ vecs - eye)[ok].abs().max().item(),
+        moment_residual=_rel_reproduction(w, x, ms, mis)[ok].max().item(),
+        max_abs_K=K[ok].abs().max().item(),
+        max_gram_cond=equilibrated_gram_cond(ms[ok], inds).max().item())
+
+
+def phase_nd_kernels_vs_plain():
+    """K2 at d=2, s in {3, 6, 10} and d=3, s=10; K3 at s in {15, 21, 28};
+    each at B=1024 and at the ragged B=1021, on mixture central moments,
+    with one trial NaN.  Bounds, per trial finite in both:
+    - K3: |K - K_plain| within the conditioned tolerance
+      max|K| (1e-13 + 10 eps cond(G')) (``conditioned_tol``);
+    - K2: sorted eigenvalues and the residual against the plain K within
+      the same tolerance (Weyl: an eigenvalue moves no more than K does),
+      orthonormality 1e-13, moment reproduction <= 10x the plain rule's
+      + 1e-12;
+    - both: the NaN trial comes out NaN, and the finite trials agree."""
+    from mfs_tpu_torch.multi_dims.quadrature import moment_quadrature_nd
+    from mfs_tpu_torch.ops import quadrature_nd_kernel as qnd
+    rng = np.random.RandomState(1)
+    for kernel, cases in (("K2", ((2, 2), (3, 2), (4, 2), (3, 3))),
+                          ("K3", ((5, 2), (6, 2), (7, 2)))):
+        for N, d in cases:
+            for B in (ND_B, ND_B - 3):
+                ms, mis, inds = nd_mixture_moments(N, d, B, rng, "cuda")
+                ms[B // 2] = float("nan")
+                s = inds.shape[1]
+                fields = dict(kernel=kernel, N=N, d=d, s=s, B=B)
+                if kernel == "K3":
+                    K = qnd.nd_k_fused(ms, inds)
+                    torch.cuda.synchronize()
+                    Kp = qnd.nd_k_fused_plain(ms, inds)
+                    fin, finp = (torch.isfinite(k).flatten(1).all(-1) for k in (K, Kp))
+                    both = fin & finp
+                    gap = (K - Kp)[both].flatten(1).abs().amax(-1)
+                    over = (gap / conditioned_tol(ms[both], inds, Kp[both])).max().item()
+                    fields.update(max_abs_gap=gap.max().item(), max_gap_over_tol=over,
+                                  max_abs_K=Kp[both].abs().max().item(),
+                                  max_gram_cond=equilibrated_gram_cond(ms[both], inds).max().item(),
+                                  finite_agree=bool((fin == finp).all()),
+                                  nan_trial_nan=not bool(fin[B // 2]))
+                    ok = over <= 1.0
+                else:
+                    vals, vecs = qnd.nd_eigh_fused(ms, inds)
+                    torch.cuda.synchronize()
+                    vp, Vp = qnd.nd_eigh_fused_plain(ms, inds)
+                    both, checks = k2_checks(ms, mis, inds, vals, vecs, vp)
+                    wp_, xp_ = moment_quadrature_nd(ms.cpu(), inds, eigh_impl="fused")
+                    plain_res = _rel_reproduction(wp_, xp_, ms.cpu(), mis)[both.cpu()].max().item()
+                    fin = torch.isfinite(vals).flatten(1).all(-1)
+                    finp = torch.isfinite(vp).flatten(1).all(-1)
+                    fields.update(checks, moment_residual_plain=plain_res,
+                                  finite_agree=bool((fin == finp).all()),
+                                  nan_trial_nan=bool(torch.isnan(vals[B // 2]).all()
+                                                     and torch.isnan(vecs[B // 2]).all()))
+                    ok = (checks["max_eigenvalue_gap_over_tol"] <= 1.0
+                          and checks["max_residual_over_tol"] <= 1.0
+                          and checks["max_orthonormality_gap"] <= 1e-13
+                          and checks["moment_residual"] <= 10 * plain_res + 1e-12)
+                emit("nd_kernels_vs_plain", **fields)
+                if not (ok and fields["finite_agree"] and fields["nan_trial_nan"]):
+                    raise AssertionError(f"{kernel} disagrees with its plain version: {fields}")
+
+
+def nd_setup(N, device):
+    """Prey–predator at order N: (mis, inds, model, poly TME-2)."""
+    from mfs_tpu_torch.models.multi_dims import prey_predator
+    from mfs_tpu_torch.multi_dims import multi_indices as nd_mi
+    from mfs_tpu_torch.multi_dims.poly_tme import poly_tme_nd
+    mis = nd_mi.generate_graded_lexico_multi_indices(2, 2 * N - 1)
+    inds = nd_mi.gram_and_hankel_indices_graded_lexico(N, 2)
+    model = prey_predator(mis, device=device)
+    poly = poly_tme_nd(model.drift, model.dispersion, model.dt, 2, mis, 2, 1, device=device)
+    return mis, inds, model, poly
+
+
+def run_nd_filter(setup, ys, eigh_impl):
+    from mfs_tpu_torch.multi_dims.filtering import moment_filter_nd_cms
+    mis, inds, model, poly = setup
+    ic = model.init_cond
+    B = ys.shape[1]
+    return moment_filter_nd_cms(poly.cms, poly.mean, model.measurement_cond_pdf, ys, (mis, inds),
+                                ic.cms.expand(B, -1), ic.mean.expand(B, 2), eigh_impl=eigh_impl,
+                                predict_fn=poly.predict_cms)
+
+
+def phase_nd_data():
+    """One ensemble of B=1024 prey–predator paths and their Bernoulli
+    observations, simulated on the card from a seed."""
+    from mfs_tpu_torch.models.multi_dims import prey_predator
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = prey_predator(np.zeros((1, 2), dtype=np.int64), device="cuda")
+    _, xss, yss = model.simulate(gen, ND_B, ND_SUBSTEPS)
+    xss, yss = xss[:ND_T], yss[:ND_T]
+    torch.cuda.synchronize()
+    emit("nd_data", B=ND_B, T=ND_T, substeps=ND_SUBSTEPS, seconds=time.perf_counter() - t0,
+         state_range=[xss.min().item(), xss.max().item()], y_mean=yss.mean().item())
+    return xss, yss
+
+
+def nd_cpu_filter(N, ys, threads):
+    """The ND filter at order N on CPU tensors, where the fused wrappers
+    run the plain versions of K2 and K3; run in a worker process.
+    Returns (nell, seconds)."""
+    torch.set_num_threads(threads)
+    setup = nd_setup(N, "cpu")
+    t0 = time.perf_counter()
+    _, _, nell = run_nd_filter(setup, torch.as_tensor(ys), "fused")
+    return nell.numpy(), time.perf_counter() - t0
+
+
+def start_nd_cpu_reference(pool, yss):
+    """Start the CPU reference on the first 64 trials in the worker pool,
+    after the timed phases, so that it runs while the card does the
+    kernel checks: each order's trials in two halves, one process each
+    (N=7 with 2 threads, N=3 with 1)."""
+    half = ND_CPU_SUBSET // 2
+    ys = yss[:, :ND_CPU_SUBSET].cpu().numpy()
+    return {N: [pool.apply_async(nd_cpu_filter, (N, ys[:, lo:lo + half], 2 if N == 7 else 1))
+                for lo in (0, half)] for N in ND_ORDERS}
+
+
+def phase_nd_main_path(smi, xss, yss):
+    """Prey–predator central filter, poly TME-2, B=1024, T=2000, through
+    "auto": at N=7 every quadrature is one K3 launch (+ cuSOLVER eigh),
+    at N=3 one K2 launch.  Each pass runs with every count set to 0 just
+    before and read just after: exactly 2*T launches of its kernel and
+    none of the other.  Outputs are checked for shape, a finite share of
+    at least ``ND_FINITE_MIN[N]`` (in f64 some trials lose a realisable
+    moment vector after step ~600, in the JAX package's filter as well)
+    and a mean absolute error of the filtering mean below 0.2 (the state
+    is ~1)."""
+    from mfs_tpu_torch.ops import quadrature_kernel as qk
+    from mfs_tpu_torch.ops import quadrature_nd_kernel as qnd
+    setups, outs = {}, {}
+    launches = {}
+    for N in ND_ORDERS:
+        setups[N] = setup = nd_setup(N, "cuda")
+        s = setup[1].shape[1]
+        kernel = "K3" if s > 10 else "K2"
+        torch.cuda.reset_peak_memory_stats()
+        qk.LAUNCHES = qnd.EIGH_LAUNCHES = qnd.K_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cmss, means, nell = run_nd_filter(setup, yss, "auto")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"K1": qk.LAUNCHES, "K2": qnd.EIGH_LAUNCHES, "K3": qnd.K_LAUNCHES}
+        launches[kernel] = counts[kernel]
+        finite = torch.isfinite(nell) & torch.isfinite(means).all(-1).all(0)
+        err = (means - xss)[:, finite].abs().mean().item() if finite.any() else float("nan")
+        outs[N] = dict(cmss=cmss, nell=nell, finite=finite)
+        z = setup[0].shape[0]
+        emit("nd_main_path", N=N, s=s, z=z, nodes=s * s, T=ND_T, B=ND_B,
+             kernel=kernel, launches=counts, wall_s=wall, trials_per_s=ND_B / wall,
+             finite_frac=finite.double().mean().item(), mean_abs_err=err,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi)
+        expected = {"K1": 0, "K2": 0, "K3": 0, kernel: 2 * ND_T}
+        if counts != expected:
+            raise AssertionError(f"N={N}: launches {counts}, expected {expected}")
+        if cmss.shape != (ND_T, ND_B, z) or means.shape != (ND_T, ND_B, 2):
+            raise AssertionError("ND main-path outputs have the wrong shape")
+        if not (finite.double().mean().item() >= ND_FINITE_MIN[N] and err < 0.2):
+            raise AssertionError(f"N={N}: finite_frac {finite.double().mean().item()}, "
+                                 f"mean abs error {err}")
+    return setups, outs, launches
+
+
+def phase_nd_timing(setups, outs):
+    """K3 (N=7) and K2 (N=3) on the main path's own inputs: the moment
+    vectors of step T/2, B=1024.  Kernel and plain version by CUDA events
+    (20 and 3 launches); the bound from k3_flops/k2_flops (K2 with this
+    input's Jacobi sweeps) and the bytes; the multi-call library
+    yardstick cholesky_ex + 2 solve_triangular per dimension (+ eigh for
+    K2).  No single PyTorch call computes either function, so
+    ``library_ms`` is null."""
+    from mfs_tpu_torch.ops import quadrature_nd_kernel as qnd
+    rows = {}
+    for N in ND_ORDERS:
+        mis, inds, _, _ = setups[N]
+        d, s = inds.shape[0] - 1, inds.shape[1]
+        ms = outs[N]["cmss"][ND_T // 2]
+        ms = ms[torch.isfinite(ms).all(-1)].contiguous()
+        B, z = ms.shape
+        idx = torch.as_tensor(inds, device="cuda")
+
+        def library(eigh):
+            R, _ = torch.linalg.cholesky_ex(ms[:, idx[0]])
+            R = R[:, None]
+            X = torch.linalg.solve_triangular(R, ms[:, idx[1:]], upper=False)
+            K = torch.linalg.solve_triangular(R.mT, X, upper=True, left=False)
+            return torch.linalg.eigh(K) if eigh else K
+
+        if s > 10:
+            name = "K3"
+            run, plain = (lambda: qnd.nd_k_fused(ms, inds)), (lambda: qnd.nd_k_fused_plain(ms, inds))
+            K, Kp = run(), plain()
+            torch.cuda.synchronize()
+            err = (K - Kp).abs().max().item()
+            over = ((K - Kp).flatten(1).abs().amax(-1) / conditioned_tol(ms, inds, Kp)).max().item()
+            ops = k3_flops(s, d) * B
+            lib = lambda: library(False)
+            extra = {}
+        else:
+            name = "K2"
+            run = lambda: qnd.nd_eigh_fused(ms, inds)
+            plain = lambda: qnd.nd_eigh_fused_plain(ms, inds)
+            vals, vecs = run()
+            torch.cuda.synchronize()
+            # the plain version stops each Jacobi run on the kernel's test
+            vp, _, sweeps = qnd.nd_eigh_fused_plain(ms, inds, return_sweeps=True)
+            _, checks = k2_checks(ms, mis, inds, vals, vecs, vp)
+            err = checks["max_eigenvalue_gap"]
+            over = max(checks["max_eigenvalue_gap_over_tol"], checks["max_residual_over_tol"])
+            sw = sweeps.cpu().numpy()
+            ops = sum(k2_flops(s, d, [int(n) for n in row]) for row in sw)
+            lib = lambda: library(True)
+            extra = dict(checks, sweeps_mean=float(sw.mean()), sweeps_max=int(sw.max()))
+        # ms in, K (K3) or vals + vecs (K2) out, and the int32 index tables
+        if not over <= 1.0:
+            raise AssertionError(f"{name} disagrees with its plain version on main-path inputs")
+        nbytes = (B * z + B * d * s * s + (B * d * s if name == "K2" else 0)) * 8 \
+            + (d + 1) * s * s * 4
+        kernel_ms = cuda_ms(run, reps=20)
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        library_path_ms = cuda_ms(lib, reps=3, warmup=1)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP64_FLOP_PER_S
+        rows[name] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+                          bound_by="bytes" if t_bytes > t_ops else "operations",
+                          max_abs_err=err)
+        emit("nd_timing", kernel=name, N=N, s=s, d=d, B=B, kernel_ms=kernel_ms, plain_ms=plain_ms,
+             f64_library_path_ms=library_path_ms,
+             f64_library_path_note="cholesky_ex + 2 solve_triangular" + (" + eigh" if name == "K2"
+                                                                         else "")
+             + ", batched over the d dimensions; multi-call yardstick",
+             bound_ms=rows[name]["bound_ms"], bound_by=rows[name]["bound_by"],
+             fp64_ops=ops, bytes=nbytes, max_abs_err=err, max_gap_over_tol=over, **extra)
+    return rows
+
+
+def phase_nd_cpu_reference(outs, pending):
+    """The same filters on 64 trials copied to the CPU, where the fused
+    wrappers run the plain versions of K3 and K2 (in worker processes
+    started after the timed phases; ``cpu_seconds`` is the slower
+    half's): nell agrees with the
+    card's to rtol 1e-8 on every trial, and both keep the same trials."""
+    for N in ND_ORDERS:
+        parts = [job.get() for job in pending[N]]
+        nell = torch.as_tensor(np.concatenate([p[0] for p in parts]))
+        cpu_s = max(p[1] for p in parts)
+        card = outs[N]["nell"][:ND_CPU_SUBSET].cpu()
+        fin, fin_card = torch.isfinite(nell), torch.isfinite(card)
+        both = fin & fin_card
+        rel = ((nell - card).abs() / card.abs())[both]
+        emit("nd_cpu_reference", N=N, trials=ND_CPU_SUBSET, T=ND_T, finite_in_both=int(both.sum()),
+             finite_agree=bool((fin == fin_card).all()), max_rel_gap=rel.max().item(),
+             median_rel_gap=rel.median().item(), cpu_seconds=cpu_s)
+        if not (bool((fin == fin_card).all()) and both.sum() > 0 and rel.max().item() < 1e-8):
+            raise AssertionError(f"N={N}: kernel path and plain path disagree on nell")
+
+
+def phase_nd_profile(setups):
+    """Device busy share over two ND filter steps at B=1024, per order."""
+    from torch.profiler import ProfilerActivity, profile
+    ys = torch.ones((2, ND_B, 1), dtype=torch.float64, device="cuda")
+    for N in ND_ORDERS:
+        run_nd_filter(setups[N], ys, "auto")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_nd_filter(setups[N], ys, "auto")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        emit("nd_profile", N=N, steps=2, B=ND_B, wall_ms=wall * 1e3, device_kernels=len(kernels),
+             device_busy_ms=busy_us / 1e3,
+             device_idle_share=(1 - busy_us / 1e3 / (wall * 1e3)) if kernels else None,
+             top_kernels_ms=[[k[:60], v / 1e3] for k, v in top])
+
+
 def main():
     smi = phase_device()
     from mfs_tpu_torch.models.one_dim import benes_bernoulli
     from mfs_tpu_torch.sde.transitions import sde_cond_moments_tme_normal
 
     phase_build()
-    phase_kernel_vs_plain()
+    xss, yss = phase_nd_data()
     model = benes_bernoulli(N=N)
     trans = sde_cond_moments_tme_normal(model.drift, model.dispersion, model.dt, 2, N)
+    # The timed phases run first, with no other work on the host: the
+    # filter loops are host-bound, so their walls and idle shares would
+    # otherwise measure the CPU reference's load as well.
     timing = phase_timing(model, trans)
     launches, ys, tier0_out = phase_main_path(model, trans, smi)
-    phase_rescue_tiers(model, trans, ys, tier0_out)
     phase_forced_rescue(model, trans, ys)
-    phase_cpu_reference(model, trans, ys, tier0_out)
     phase_profile(model, trans)
-    print(json.dumps({"kernels": [{
-        "name": "quadrature_1d",
-        "route": "cuda",
-        "source": "mfs_tpu_torch/csrc/quadrature_1d.cu",
-        "replaces": "mfs_tpu/ops/pallas_quadrature.py:95",
-        "launches": launches,
-        "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": None,
-    }]}), flush=True)
+    setups, outs, nd_launches = phase_nd_main_path(smi, xss, yss)
+    nd_rows = phase_nd_timing(setups, outs)
+    phase_nd_profile(setups)
+    # Then the checks, while the ND CPU reference runs in worker processes.
+    with multiprocessing.get_context("spawn").Pool(4) as pool:  # terminated on exit
+        pending = start_nd_cpu_reference(pool, yss)
+        phase_kernel_vs_plain()
+        phase_rescue_tiers(model, trans, ys, tier0_out)
+        phase_cpu_reference(model, trans, ys, tier0_out)
+        phase_nd_kernels_vs_plain()
+        phase_nd_cpu_reference(outs, pending)
+    k1 = {"name": "quadrature_1d", "route": "cuda",
+          "source": "mfs_tpu_torch/csrc/quadrature_1d.cu",
+          "replaces": "mfs_tpu/ops/pallas_quadrature.py:95", "launches": launches,
+          **{k: timing[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+          "library_ms": None}
+    nd = [{"name": name, "route": "cuda", "source": "mfs_tpu_torch/csrc/quadrature_nd.cu",
+           "replaces": replaces, "launches": nd_launches[key],
+           **{k: nd_rows[key][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+           "library_ms": None}
+          for key, name, replaces in (
+              ("K2", "nd_eigh", "mfs_tpu/ops/pallas_quadrature_nd.py:70"),
+              ("K3", "nd_k", "mfs_tpu/ops/pallas_quadrature_nd.py:271"))]
+    print(json.dumps({"kernels": [k1] + nd}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

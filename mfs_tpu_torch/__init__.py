@@ -1,16 +1,25 @@
 """mfs_tpu_torch: the PyTorch/CUDA port of mfs_tpu.
 
 Moment-representation stochastic filters for an NVIDIA H100, in f64.
-Module paths and function names mirror ``mfs_tpu``; the only kernel on
-the 1D path, the fused moment quadrature, is a hand-written CUDA C++
-kernel (``mfs_tpu_torch/csrc/quadrature_1d.cu``), built with ``nvcc``
-at first use.  Everything else is plain PyTorch.
+Module paths and function names mirror ``mfs_tpu``.  The kernels are
+hand-written CUDA C++, built with ``nvcc`` at first use: the fused 1D
+moment quadrature (``csrc/quadrature_1d.cu``) and the ND fused
+eigenpairs and K-builder (``csrc/quadrature_nd.cu``).  Everything else
+is plain PyTorch.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``
 (see ``mfs_tpu_torch.config.default_device``).
 """
 from mfs_tpu_torch.config import DTYPE, default_device
+from mfs_tpu_torch.models.multi_dims import ModelND, lotka_volterra_3d, prey_predator
 from mfs_tpu_torch.models.one_dim import Model1D, benes_bernoulli
+from mfs_tpu_torch.multi_dims import (
+    moment_filter_nd_cms,
+    moment_filter_nd_rms,
+    moment_filter_nd_scms,
+    moment_quadrature_nd,
+    poly_tme_nd,
+)
 from mfs_tpu_torch.one_dim.filtering import (
     moment_filter_cms,
     moment_filter_rms,

@@ -3,8 +3,9 @@
 Each ``mfs_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled on first use into ``build/kernels/<name>-<hash>.so`` at the
 repository root, keyed by a hash of the source and the flags, so a
-changed source rebuilds and an unchanged one is reused.  Nothing here
-runs at import time.
+changed source rebuilds and an unchanged one is reused.  The compiler's
+output is kept beside it as ``<name>-<hash>.log``.  Nothing here runs at
+import time.
 """
 import ctypes
 import functools
@@ -36,23 +37,39 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{key}.so"
 
 
+def saved_log(name: str) -> str:
+    """The compiler's output from the build of the current ``name``
+    library, or "" if it was built without one."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 def build(names: Sequence[str]) -> Dict[str, str]:
-    """Compile every library in ``names`` that is not built yet, one
-    ``nvcc`` per source.  Returns the compiler's output (``-Xptxas -v``:
-    registers, spills) per source it built, and raises if a build fails."""
+    """Compile every library in ``names`` that is not built yet: one
+    ``nvcc`` per source, all started together.  Returns the compiler's
+    output (``-Xptxas -v``: registers, stack, spills) per source it
+    built, and raises if a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    logs = {}
-    for name in names:
+    procs = {}
+    for name in dict.fromkeys(names):
         out = library_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        logs[name] = proc.stdout
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-        os.replace(tmp, out)
+            failed.append(name)
+        else:
+            out.with_suffix(".log").write_text(logs[name])
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
     return logs
 
 

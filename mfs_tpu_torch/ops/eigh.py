@@ -5,10 +5,15 @@ On the H100 f64 is native, so the JAX package's TPU work-arounds
 ``torch.linalg.eigh`` call in f64.  ``eigh_batched`` (the in-repo
 round-robin Jacobi solver) waits for ROADMAP E3.
 
-Non-finite matrices (diverged trials) are replaced by the identity
-before the call and their outputs set to NaN: LAPACK and cuSOLVER may
-raise on them, while the JAX reference returns NaN and lets the rescue
-tiers pick those trials up.
+Matrices of diverged trials are replaced by the identity before the
+call and their outputs set to NaN: LAPACK and cuSOLVER may raise on
+them, while the JAX reference returns NaN and lets the rescue tiers pick
+those trials up.  A trial has diverged when its matrix has a non-finite
+entry or one larger than ``DIVERGED_ABS`` in magnitude: the eigenvalues
+are quadrature nodes, so such a trial has nodes ~1e100 from its frame's
+origin.  cuSOLVER's batched Jacobi (used at n <= 32) fails to converge
+on such matrices (seen on an H100 with a 2D prey–predator trial whose
+moments had blown up), and torch then raises for the whole batch.
 """
 from typing import Tuple
 
@@ -17,9 +22,12 @@ import torch
 from mfs_tpu_torch.typings import Array
 
 
+DIVERGED_ABS = 1e100
+
+
 def _eigh_f64(a: Array) -> Tuple[Array, Array]:
     n = a.shape[-1]
-    ok = torch.isfinite(a).all(dim=-1).all(dim=-1)
+    ok = (torch.isfinite(a) & (a.abs() <= DIVERGED_ABS)).all(dim=-1).all(dim=-1)
     eye = torch.eye(n, dtype=a.dtype, device=a.device)
     vals, vecs = torch.linalg.eigh(torch.where(ok[..., None, None], a, eye))
     nan = torch.full((), float("nan"), dtype=a.dtype, device=a.device)

@@ -1,0 +1,325 @@
+"""ND moment-quadrature kernels K2 and K3 and their plain versions.
+
+Counterpart of ``mfs_tpu/ops/pallas_quadrature_nd.py`` for its two
+single-program kernels.  Both start from a graded-lex moment vector
+``ms (..., z)`` and the index tables ``inds (d + 1, s, s)`` of
+``gram_and_hankel_indices_graded_lexico``:
+
+- the equilibrated Gram G'_ij = c_i G_ij c_j, c_j = 1/sqrt(G_jj)
+  (G_jj <= 1e-30 -> 1), factorised LDL^T with true pivots: a pivot
+  <= 0 gets the completion diagonal 1e-8*s, and a pivot below 1e-35 in
+  magnitude is replaced by a signed 1e-35 before dividing;
+- the d multiplication operators K_m = R^{-1} H'_m R^{-T},
+  R = Lu diag(scale), by two triangular solves, symmetrised.
+
+``nd_k_fused`` (K3, replaces ``_nd_k_kernel``) returns the K_m; the
+caller eigendecomposes them.  ``nd_eigh_fused`` (K2, replaces
+``_nd_kernel``) continues with cyclic Jacobi in f64, in the round-robin
+order of ``mfs_tpu/ops/eigh.py::_round_robin_schedule``, until the
+off-diagonal mass falls below ``(1e-14)^2`` of the total (capped at
+``MAX_SWEEPS``).  The TPU kernel's f32 sweeps and Newton–Schulz
+re-orthonormalisation exist only because the TPU has no f64 ALU; they
+are not ported.  K2 keeps its JAX body's order of the solves (the
+division by ``scale[r]`` inside each recursion), K3 its own (two unit
+solves, then the ``1/scale`` scaling).
+
+- On a CUDA tensor each wrapper launches its kernel in
+  ``csrc/quadrature_nd.cu`` (built by ``nvcc`` at first use) or raises.
+- On a CPU tensor it runs the plain PyTorch version below, the same
+  arithmetic in the same order, vectorised over the batch.
+
+A trial whose moments are not finite comes out NaN.  Gradients are not
+defined (the JAX kernels define none); inputs that require grad raise.
+"""
+import ctypes
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from mfs_tpu_torch.config import DTYPE
+from mfs_tpu_torch.ops import build
+from mfs_tpu_torch.typings import Array
+
+MAX_S_EIGH = 10  # K2: one thread per (trial, dimension), matrices in registers/local memory
+MAX_D_EIGH = 3
+MAX_S_K = 32  # K3: one warp per trial, one lane per row or column
+MAX_D_K = 3
+MAX_SWEEPS = 20
+JACOBI_TOL = 1e-14
+_PIVOT_DIAG = 1e-8
+
+# Launches of each CUDA kernel (not of the plain versions) since import.
+EIGH_LAUNCHES = 0
+K_LAUNCHES = 0
+
+
+@functools.lru_cache(maxsize=None)
+def round_robin_schedule(n: int) -> Tuple[Tuple[Tuple[int, ...], Tuple[int, ...]], ...]:
+    """Tournament schedule of the cyclic Jacobi sweep: n-1 rounds (n even)
+    of disjoint (p, q) pairs, p < q, by the circle method; for odd n one
+    virtual index sits out each round.  A copy of
+    ``mfs_tpu/ops/eigh.py::_round_robin_schedule``; the CUDA kernel
+    builds the same schedule."""
+    m = n if n % 2 == 0 else n + 1
+    players = list(range(m))
+    rounds = []
+    for _ in range(m - 1):
+        ps, qs = [], []
+        for i in range(m // 2):
+            a, b = players[i], players[m - 1 - i]
+            if a < n and b < n:
+                ps.append(min(a, b))
+                qs.append(max(a, b))
+        rounds.append((tuple(ps), tuple(qs)))
+        players = [players[0]] + [players[-1]] + players[1:-1]
+    return tuple(rounds)
+
+
+def _prepare(ms: Array, inds, max_s: int, max_d: int):
+    if not torch.is_tensor(ms):
+        raise TypeError("ms must be a tensor")
+    if ms.requires_grad:
+        raise NotImplementedError(
+            "the fused ND quadrature kernels have no gradient (neither do the "
+            "JAX kernels); use eigh_impl='refined' to differentiate"
+        )
+    if ms.dtype != DTYPE:
+        raise TypeError(f"ms must be float64, got {ms.dtype}")
+    inds = np.asarray(torch.as_tensor(inds).cpu(), dtype=np.int64)
+    if inds.ndim != 3 or inds.shape[1] != inds.shape[2]:
+        raise ValueError(f"inds must be (d + 1, s, s), got {inds.shape}")
+    d, s = inds.shape[0] - 1, inds.shape[1]
+    z = ms.shape[-1]
+    if not (1 <= d <= max_d and 1 <= s <= max_s):
+        raise ValueError(f"this kernel takes d <= {max_d} and s <= {max_s}, got d={d}, s={s}")
+    if inds.min() < 0 or inds.max() >= z:
+        raise ValueError(f"inds reach moment {inds.max()} of a {z}-vector")
+    batch_shape = ms.shape[:-1]
+    B = int(np.prod(batch_shape)) if batch_shape else 1
+    return inds, d, s, z, batch_shape, B
+
+
+@functools.lru_cache(maxsize=None)
+def _inds_on(key: bytes, shape: Tuple[int, ...], device: torch.device) -> Array:
+    arr = np.frombuffer(key, dtype=np.int64).reshape(shape).astype(np.int32)
+    return torch.as_tensor(arr, device=device)
+
+
+def _device_inds(inds: np.ndarray, device) -> Array:
+    return _inds_on(inds.tobytes(), inds.shape, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = build.load("quadrature_nd")
+    eigh = lib.mfs_nd_eigh
+    eigh.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    eigh.restype = ctypes.c_int
+    kb = lib.mfs_nd_k
+    kb.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    kb.restype = ctypes.c_int
+    return eigh, kb
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# K3: the K-builder
+# ---------------------------------------------------------------------------
+
+
+def nd_k_fused(ms: Array, inds) -> Array:
+    """The d multiplication operators ``K (..., d, s, s)`` (symmetrised)
+    of ``ms (..., z)``: K3 on a CUDA tensor, its plain version on a CPU
+    tensor."""
+    global K_LAUNCHES
+    if torch.is_tensor(ms) and ms.device.type == "cpu":
+        return nd_k_fused_plain(ms, inds)
+    inds, d, s, z, batch_shape, B = _prepare(ms, inds, MAX_S_K, MAX_D_K)
+    if ms.device.type != "cuda":
+        raise ValueError(f"no fused ND quadrature for device {ms.device}")
+    ms2 = ms.reshape(B, z).contiguous()
+    K = torch.empty((B, d, s, s), dtype=DTYPE, device=ms.device)
+    _, fn = _lib()
+    with torch.cuda.device(ms.device):
+        err = fn(ms2.data_ptr(), _device_inds(inds, ms.device).data_ptr(), K.data_ptr(),
+                 d, s, z, B, _stream(ms.device))
+    if err != 0:
+        raise RuntimeError(f"nd_k launch failed: CUDA error {err}")
+    K_LAUNCHES += 1
+    return K.reshape(batch_shape + (d, s, s))
+
+
+def _equilibrated(ms2: Array, inds: np.ndarray):
+    """c (B, s) and the equilibrated G' (B, s, s), H' (B, d, s, s)."""
+    idx = torch.as_tensor(inds, device=ms2.device)
+    G = ms2[:, idx[0]]
+    gjj = torch.diagonal(G, dim1=-2, dim2=-1)
+    c = 1.0 / torch.sqrt(torch.where(gjj <= 1e-30, 1.0, gjj))
+    Gp = (c[:, :, None] * G) * c[:, None, :]
+    Hp = (c[:, None, :, None] * ms2[:, idx[1:]]) * c[:, None, None, :]
+    return c, Gp, Hp
+
+
+def _ldl_plain(Gp: Array):
+    """Right-looking LDL^T of G' (B, s, s), true pivots: unit-lower
+    ``Lu``, guarded pivots and R's diagonal ``scale``.  Each entry gets
+    its updates in the order k = 0, 1, ..., as in the kernels'
+    left-looking loops."""
+    s = Gp.shape[-1]
+    A = Gp.clone()
+    Lu = torch.zeros_like(Gp)
+    piv = torch.empty(Gp.shape[:-1], dtype=Gp.dtype, device=Gp.device)
+    scale = torch.empty_like(piv)
+    for j in range(s):
+        dj = A[:, j, j]
+        bad = dj <= 0.0
+        dj = torch.where(dj.abs() < 1e-35, torch.where(dj < 0.0, -1e-35, 1e-35), dj)
+        scale[:, j] = torch.where(bad, _PIVOT_DIAG * s, torch.sqrt(torch.where(bad, 1.0, dj)))
+        piv[:, j] = dj
+        Lu[:, j, j] = 1.0
+        Lu[:, j + 1:, j] = A[:, j + 1:, j] / dj[:, None]
+        # A_ik -= L_ij (d_j L_kj) for the columns still to come
+        A[:, j + 1:, j + 1:] -= Lu[:, j + 1:, j, None] * (dj[:, None, None] * Lu[:, None, j + 1:, j])
+    return Lu, piv, scale
+
+
+def _unit_forward(Lu: Array, rhs: Array) -> Array:
+    """Lu^{-1} rhs column by column (axpy order, as the kernels do):
+    Lu (B, s, s), rhs (B, d, s, s)."""
+    v = rhs.clone()
+    for k in range(v.shape[-2] - 1):
+        v[..., k + 1:, :] -= Lu[:, None, k + 1:, k, None] * v[..., k, None, :]
+    return v
+
+
+def nd_k_fused_plain(ms: Array, inds) -> Array:
+    """K3's arithmetic in plain PyTorch f64 on any device."""
+    inds, d, s, z, batch_shape, B = _prepare(ms, inds, MAX_S_K, MAX_D_K)
+    c, Gp, Hp = _equilibrated(ms.reshape(B, z), inds)
+    Lu, _, scale = _ldl_plain(Gp)
+    isc = 1.0 / scale
+    W = _unit_forward(Lu, Hp)  # Lu^{-1} H'
+    Y = _unit_forward(Lu, W.mT).mT  # W Lu^{-T}
+    K = (Y * isc[:, None, :, None]) * isc[:, None, None, :]
+    K = 0.5 * (K + K.mT)
+    return K.reshape(batch_shape + (d, s, s))
+
+
+# ---------------------------------------------------------------------------
+# K2: fused eigenpairs
+# ---------------------------------------------------------------------------
+
+
+def nd_eigh_fused(ms: Array, inds) -> Tuple[Array, Array]:
+    """Eigenpairs of the d multiplication operators of ``ms (..., z)``:
+    ``vals (..., d, s)``, ``vecs (..., d, s, s)`` with eigenvectors in
+    the columns, unsorted.  K2 on a CUDA tensor, its plain version on a
+    CPU tensor."""
+    global EIGH_LAUNCHES
+    if torch.is_tensor(ms) and ms.device.type == "cpu":
+        return nd_eigh_fused_plain(ms, inds)
+    inds, d, s, z, batch_shape, B = _prepare(ms, inds, MAX_S_EIGH, MAX_D_EIGH)
+    if ms.device.type != "cuda":
+        raise ValueError(f"no fused ND quadrature for device {ms.device}")
+    ms2 = ms.reshape(B, z).contiguous()
+    vals = torch.empty((B, d, s), dtype=DTYPE, device=ms.device)
+    vecs = torch.empty((B, d, s, s), dtype=DTYPE, device=ms.device)
+    fn, _ = _lib()
+    with torch.cuda.device(ms.device):
+        err = fn(ms2.data_ptr(), _device_inds(inds, ms.device).data_ptr(), vals.data_ptr(),
+                 vecs.data_ptr(), d, s, z, B, _stream(ms.device))
+    if err != 0:
+        raise RuntimeError(f"nd_eigh launch failed: CUDA error {err}")
+    EIGH_LAUNCHES += 1
+    return vals.reshape(batch_shape + (d, s)), vecs.reshape(batch_shape + (d, s, s))
+
+
+def _solve_scaled(Lu: Array, scale: Array, rhs: Array) -> Array:
+    """R^{-1} rhs with R = Lu diag(scale), the division by scale[r]
+    inside the recursion (K2's JAX order): rhs (B, d, s, s)."""
+    v = rhs.clone()
+    s = v.shape[-2]
+    for k in range(s):
+        v[..., k, :] = v[..., k, :] / scale[:, None, k, None]
+        if k < s - 1:
+            v[..., k + 1:, :] -= Lu[:, None, k + 1:, k, None] * (
+                scale[:, None, k, None, None] * v[..., k, None, :])
+    return v
+
+
+def jacobi_plain(A: Array):
+    """Cyclic Jacobi on symmetric ``A (..., s, s)`` in round-robin order,
+    each matrix stopping once its off-diagonal mass is at most
+    ``JACOBI_TOL^2`` of its total (a NaN mass stops it too), after at most
+    ``MAX_SWEEPS`` sweeps.  Per round: all rotation
+    angles, then all column updates, then all row updates, then the
+    eigenvector updates, exactly as the CUDA kernel orders them.
+    Returns (vals, vecs, sweeps)."""
+    s = A.shape[-1]
+    A = A.clone()
+    V = torch.eye(s, dtype=A.dtype, device=A.device).expand(A.shape).clone()
+    sweeps = torch.zeros(A.shape[:-2], dtype=torch.int32, device=A.device)
+    offmask = ~torch.eye(s, dtype=torch.bool, device=A.device)
+    rounds = [(torch.as_tensor(p, device=A.device), torch.as_tensor(q, device=A.device))
+              for p, q in round_robin_schedule(s)]
+    for _ in range(MAX_SWEEPS):
+        sq = A * A
+        off = torch.where(offmask, sq, 0.0).sum(dim=(-2, -1))
+        active = off > (JACOBI_TOL * JACOBI_TOL) * sq.sum(dim=(-2, -1))
+        if not bool(active.any()):
+            break
+        sweeps += active.to(torch.int32)
+        for P, Q in rounds:
+            app, aqq, apq = A[..., P, P], A[..., Q, Q], A[..., P, Q]
+            safe = torch.where(apq == 0.0, 1.0, apq)
+            tau = (aqq - app) / (2.0 * safe)
+            t = torch.where(tau >= 0.0, 1.0, -1.0) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
+            t = torch.where(active[..., None] & (apq != 0.0), t, 0.0)
+            c = 1.0 / torch.sqrt(1.0 + t * t)
+            sn = t * c
+            cc, ss = c[..., None, :], sn[..., None, :]
+            Ap, Aq = A[..., :, P], A[..., :, Q]
+            A[..., :, P] = cc * Ap - ss * Aq
+            A[..., :, Q] = ss * Ap + cc * Aq
+            cr, sr = c[..., :, None], sn[..., :, None]
+            Ap, Aq = A[..., P, :], A[..., Q, :]
+            A[..., P, :] = cr * Ap - sr * Aq
+            A[..., Q, :] = sr * Ap + cr * Aq
+            Vp, Vq = V[..., :, P], V[..., :, Q]
+            V[..., :, P] = cc * Vp - ss * Vq
+            V[..., :, Q] = ss * Vp + cc * Vq
+    return torch.diagonal(A, dim1=-2, dim2=-1), V, sweeps
+
+
+def nd_eigh_operators_plain(ms: Array, inds) -> Array:
+    """The K_m that K2 decomposes, ``(..., d, s, s)``: K3's function
+    computed in K2's order of the solves (plain PyTorch f64)."""
+    inds, d, s, z, batch_shape, B = _prepare(ms, inds, MAX_S_EIGH, MAX_D_EIGH)
+    _, Gp, Hp = _equilibrated(ms.reshape(B, z), inds)
+    Lu, _, scale = _ldl_plain(Gp)
+    X = _solve_scaled(Lu, scale, Hp)  # R^{-1} H'
+    K = _solve_scaled(Lu, scale, X.mT)  # R^{-1} X^T = R^{-1} H' R^{-T}
+    return (0.5 * (K + K.mT)).reshape(batch_shape + (d, s, s))
+
+
+def nd_eigh_fused_plain(ms: Array, inds, return_sweeps: bool = False):
+    """K2's arithmetic in plain PyTorch f64 on any device.  With
+    ``return_sweeps`` also the Jacobi sweeps each ``(trial, dimension)``
+    ran, int32 ``(..., d)`` (the kernel stops on the same test)."""
+    inds, d, s, z, batch_shape, B = _prepare(ms, inds, MAX_S_EIGH, MAX_D_EIGH)
+    K = nd_eigh_operators_plain(ms, inds).reshape(B, d, s, s)
+    finite = torch.isfinite(K).all(dim=-1).all(dim=-1)
+    eye = torch.eye(s, dtype=K.dtype, device=K.device)
+    vals, vecs, sweeps = jacobi_plain(torch.where(finite[..., None, None], K, eye))
+    nan = torch.full((), float("nan"), dtype=K.dtype, device=K.device)
+    vals = torch.where(finite[..., None], vals, nan)
+    vecs = torch.where(finite[..., None, None], vecs, nan)
+    out = (vals.reshape(batch_shape + (d, s)), vecs.reshape(batch_shape + (d, s, s)))
+    if return_sweeps:
+        out += (sweeps.reshape(batch_shape + (d,)),)
+    return out

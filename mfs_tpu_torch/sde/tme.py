@@ -1,6 +1,6 @@
-"""Taylor moment expansion (TME) of scalar-state SDE conditional expectations.
+"""Taylor moment expansion (TME) of SDE conditional expectations.
 
-Port of the 1D half of ``mfs_tpu/sde/tme.py``.  For
+Port of ``mfs_tpu/sde/tme.py``.  For
 
     dX(t) = a(X(t)) dt + b(X(t)) dW(t)
 
@@ -10,8 +10,15 @@ approximates ``E[f(X_{t+dt}) | X_t = x] ≈ Σ_{r=0}^{p} dt^r / r! (A^r f)(x)``.
 Derivatives are nested forward-mode ``torch.func.jvp`` along a unit
 tangent: every function here is elementwise in ``x``, so that
 directional derivative *is* the elementwise derivative, and ``phi`` may
-append trailing output axes (the vector of all 2N monomials).  The
-vector-state half waits for the ND slice.
+append trailing output axes (the vector of all 2N monomials).
+
+The vector-state half (``generator``, ``expectation``, ``mean_and_cov``)
+is batch-first in the same way: states are ``x (..., d)``, ``drift``
+maps ``(..., d) -> (..., d)`` and ``dispersion`` maps ``(..., d) ->
+(..., d, m)`` (or returns a constant matrix that broadcasts).  A
+directional derivative along a tangent field ``(..., d)`` is taken per
+state, so no ``vmap`` is needed, unlike the JAX package's per-node
+functions.
 """
 import math
 from typing import Callable, Tuple
@@ -109,3 +116,73 @@ def mean_and_var_1d(
     return _consistent_mean_cov(
         id_terms, sq_terms, dt, order, lambda a, b: a * b
     )
+
+
+def _trailing(v: Array, out: Array, batch_ndim: int) -> Array:
+    """``v (...)`` with singleton axes for ``out``'s trailing output axes."""
+    return v.reshape(v.shape + (1,) * (out.ndim - batch_ndim))
+
+
+def generator(phi: Callable, drift: Callable, dispersion: Callable) -> Callable:
+    """Generator for vector-state SDEs, ``phi: (..., d) -> (..., *out)``:
+    ``A phi = (grad phi) . a + 1/2 (b b^T) : hess phi``.
+
+    The Hessian contraction takes d(d+1)/2 nested JVPs along basis
+    vectors, exact for any output shape.
+    """
+
+    def a_phi(x):
+        d = x.shape[-1]
+        a = drift(x) * torch.ones_like(x)
+        b = torch.as_tensor(dispersion(x), dtype=x.dtype, device=x.device)
+        if b.ndim < 2:
+            b = b.reshape(1, 1)
+        gamma = (b @ b.mT).expand(x.shape + (d,))
+
+        first = jvp(phi, (x,), (a,))[1]
+        out = first
+        for i in range(d):
+            e_i = torch.zeros_like(x)
+            e_i[..., i] = 1.0
+            di_phi = lambda u, _e=e_i: jvp(phi, (u,), (_e,))[1]
+            for j in range(i, d):
+                e_j = torch.zeros_like(x)
+                e_j[..., j] = 1.0
+                dij = jvp(di_phi, (x,), (e_j,))[1]
+                w = gamma[..., i, j] if i == j else 2.0 * gamma[..., i, j]
+                out = out + 0.5 * _trailing(w, dij, x.ndim - 1) * dij
+        return out
+
+    return a_phi
+
+
+def expectation(
+    phi: Callable,
+    x: Array,
+    dt: FloatScalar,
+    drift: Callable,
+    dispersion: Callable,
+    order: int = 3,
+):
+    """TME of ``E[phi(X_{t+dt}) | X_t = x]`` for vector-state SDEs."""
+    gen = lambda f: generator(f, drift, dispersion)
+    return _expansion(phi, gen, x, dt, order)
+
+
+def _outer(a: Array, b: Array) -> Array:
+    return a[..., :, None] * b[..., None, :]
+
+
+def mean_and_cov(
+    x: Array,
+    dt: FloatScalar,
+    drift: Callable,
+    dispersion: Callable,
+    order: int = 3,
+) -> Tuple[Array, Array]:
+    """TME conditional mean ``(..., d)`` and covariance ``(..., d, d)``
+    for vector-state SDEs (consistently truncated covariance)."""
+    gen_of = lambda f: generator(f, drift, dispersion)
+    id_terms = _generator_powers(lambda u: u, gen_of, x, order)
+    sq_terms = _generator_powers(lambda u: _outer(u, u), gen_of, x, order)
+    return _consistent_mean_cov(id_terms, sq_terms, dt, order, _outer)

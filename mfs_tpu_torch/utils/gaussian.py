@@ -1,8 +1,9 @@
 """Gaussian moment closed forms and Gaussian-sum initial conditions.
 
-Port of ``mfs_tpu/utils/gaussian.py`` (1D half): ``normal_raw_moments_all``
+Port of ``mfs_tpu/utils/gaussian.py``: ``normal_raw_moments_all``
 computes every moment order 0..P-1 in one O(P) three-term recurrence,
-elementwise over batched mean/variance tensors.
+elementwise over batched mean/variance tensors; ``GaussianSumND`` keeps
+a d-dimensional mixture's graded-lex moment vectors.
 """
 import math
 from typing import NamedTuple
@@ -84,3 +85,56 @@ class GaussianSum1D(NamedTuple):
             cms=cms,
             scms=scms,
         )
+
+
+class GaussianSumND(NamedTuple):
+    """A d-dimensional Gaussian mixture with graded-lex moment vectors
+    (raw and central) over the given multi-indices, computed with the
+    Kan–Magnus tables of ``mfs_tpu_torch.multi_dims.moments``."""
+
+    d: int
+    means: Array  # (c, d)
+    covs: Array  # (c, d, d)
+    weights: Array  # (c,)
+    mean: Array  # (d,)
+    cov: Array  # (d, d)
+    rms: Array  # (z,)
+    cms: Array  # (z,)
+
+    def _components(self):
+        return torch.distributions.MultivariateNormal(self.means, self.covs)
+
+    def pdf(self, x: Array) -> Array:
+        """Density at ``x (..., d)``."""
+        return torch.exp(self.logpdf(x))
+
+    def logpdf(self, x: Array) -> Array:
+        """Log density at ``x (..., d)``."""
+        comp = self._components().log_prob(x[..., None, :])  # (..., c)
+        return torch.logsumexp(comp + torch.log(self.weights), dim=-1)
+
+    def sampler(self, generator: torch.Generator, n: int) -> Array:
+        """``n`` draws ``(n, d)``; ``generator`` must live on the mixture's device."""
+        cs = torch.multinomial(self.weights, n, replacement=True, generator=generator)
+        chols = torch.linalg.cholesky(self.covs[cs])
+        eps = torch.randn((n, self.d), generator=generator, dtype=DTYPE,
+                          device=self.means.device)
+        return self.means[cs] + torch.einsum("nij,nj->ni", chols, eps)
+
+    @classmethod
+    def new(cls, means, covs, weights, multi_indices, device=None):
+        from mfs_tpu_torch.multi_dims.moments import raw_moments_mvn_kan_all
+
+        means = as_tensor(means, device)
+        covs = as_tensor(covs, device)
+        weights = as_tensor(weights, device)
+        centre = torch.einsum("c,cd->d", weights, means)
+        second = torch.einsum("c,cde->de", weights,
+                              covs + means[:, :, None] * means[:, None, :])
+        cov = second - torch.outer(centre, centre)
+        rms = torch.einsum("c,cz->z", weights,
+                           raw_moments_mvn_kan_all(means, covs, multi_indices))
+        cms = torch.einsum("c,cz->z", weights,
+                           raw_moments_mvn_kan_all(means - centre, covs, multi_indices))
+        return cls(d=means.shape[1], means=means, covs=covs, weights=weights,
+                   mean=centre, cov=cov, rms=rms, cms=cms)

@@ -123,3 +123,118 @@ def test_default_device_is_cuda(cuda):
     model = benes_bernoulli(N=2)
     assert model.init_cond.cms.device.type == "cuda"
     assert hankel_indices(3)[0].device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# ND kernels K2 (fused eigenpairs) and K3 (K-builder)
+# ---------------------------------------------------------------------------
+
+from mfs_tpu_torch.models.multi_dims import prey_predator  # noqa: E402
+from mfs_tpu_torch.multi_dims import multi_indices as nd_mi  # noqa: E402
+from mfs_tpu_torch.multi_dims.filtering import moment_filter_nd_cms  # noqa: E402
+from mfs_tpu_torch.multi_dims.moments import monomials_nd, raw_moments_mvn_kan_all  # noqa: E402
+from mfs_tpu_torch.multi_dims.poly_tme import poly_tme_nd  # noqa: E402
+from mfs_tpu_torch.multi_dims.quadrature import moment_quadrature_nd  # noqa: E402
+from mfs_tpu_torch.ops import quadrature_nd_kernel as qnd  # noqa: E402
+
+
+def _nd_moments(N, d, B, seed, device):
+    """Raw moments of B random Gaussians in d dimensions, orders <= 2N-1."""
+    rng = np.random.RandomState(seed)
+    mis = nd_mi.generate_graded_lexico_multi_indices(d, 2 * N - 1)
+    mean = torch.as_tensor(0.3 * rng.randn(B, d), device=device)
+    a = torch.as_tensor(rng.randn(B, d, d), device=device)
+    cov = a @ a.mT * 0.1 + 0.5 * torch.eye(d, dtype=torch.float64, device=device)
+    return raw_moments_mvn_kan_all(mean, cov, mis), nd_mi.gram_and_hankel_indices_graded_lexico(N, d)
+
+
+@pytest.mark.parametrize("N, d", [(5, 2), (6, 2), (7, 2), (3, 2)])
+def test_k3_matches_plain_version(cuda, N, d):
+    """K3 vs its plain version on the card, ragged B = 1021, one trial
+    NaN: K atol 1e-11 (measured 2.9e-12 at s = 28; FMA contraction), the
+    NaN trial NaN."""
+    ms, inds = _nd_moments(N, d, 1021, N, cuda)
+    ms[7] = float("nan")
+    before = qnd.K_LAUNCHES
+    K = qnd.nd_k_fused(ms, inds)
+    torch.cuda.synchronize()
+    Kp = qnd.nd_k_fused_plain(ms, inds)
+    ok = torch.arange(1021, device=cuda) != 7
+    assert qnd.K_LAUNCHES == before + 1
+    assert (K - Kp)[ok].abs().max().item() < 1e-11
+    assert bool(torch.isnan(K[7]).any())
+
+
+@pytest.mark.parametrize("N, d", [(2, 2), (3, 2), (4, 2), (3, 3)])
+def test_k2_matches_plain_version(cuda, N, d):
+    """K2 vs its plain version on the card by rotation-free checks
+    (sorted eigenvalues 1e-12, residual 1e-12, orthonormality 1e-13);
+    a NaN trial comes out NaN in values and vectors."""
+    ms, inds = _nd_moments(N, d, 513, N + d, cuda)
+    ms[5] = float("nan")
+    s = inds.shape[1]
+    before = qnd.EIGH_LAUNCHES
+    vals, vecs = qnd.nd_eigh_fused(ms, inds)
+    torch.cuda.synchronize()
+    vp, _ = qnd.nd_eigh_fused_plain(ms, inds)
+    K = qnd.nd_k_fused_plain(ms, inds)
+    ok = torch.arange(513, device=cuda) != 5
+    assert qnd.EIGH_LAUNCHES == before + 1
+    assert (vals.sort(-1)[0] - vp.sort(-1)[0])[ok].abs().max().item() < 1e-12
+    assert (K @ vecs - vecs * vals[..., None, :])[ok].abs().max().item() < 1e-12
+    eye = torch.eye(s, dtype=torch.float64, device=cuda)
+    assert (vecs.mT @ vecs - eye)[ok].abs().max().item() < 1e-13
+    assert bool(torch.isnan(vals[5]).all() and torch.isnan(vecs[5]).all())
+
+
+def test_nd_kernels_raise_instead_of_falling_back(cuda):
+    ms, inds = _nd_moments(3, 2, 4, 0, cuda)
+    before = (qnd.EIGH_LAUNCHES, qnd.K_LAUNCHES)
+    with pytest.raises(NotImplementedError):
+        qnd.nd_eigh_fused(ms.clone().requires_grad_(True), inds)
+    with pytest.raises(NotImplementedError):
+        qnd.nd_k_fused(ms.clone().requires_grad_(True), inds)
+    with pytest.raises(TypeError):
+        qnd.nd_k_fused(ms.float(), inds)
+    with pytest.raises(ValueError):
+        qnd.nd_eigh_fused(*_nd_moments(5, 2, 4, 0, cuda))
+    assert (qnd.EIGH_LAUNCHES, qnd.K_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("N, kernel", [(3, "EIGH_LAUNCHES"), (5, "K_LAUNCHES")])
+def test_auto_routes_cuda_tensors_to_the_kernels(cuda, N, kernel):
+    """"auto" on a CUDA tensor launches K2 at s = 6 and K3 at s = 15, and
+    the rule reproduces the moments to 5e-12 relative (moments of order 9
+    reach ~200 here)."""
+    ms, inds = _nd_moments(N, 2, 64, 1, cuda)
+    before = getattr(qnd, kernel)
+    w, x = moment_quadrature_nd(ms, inds, eigh_impl="auto")
+    assert getattr(qnd, kernel) == before + 1
+    mis = nd_mi.generate_graded_lexico_multi_indices(2, 2 * N - 1)
+    got = torch.einsum("bmz,bm->bz", monomials_nd(x, mis), w)
+    assert ((got - ms).abs() / ms.abs().clamp_min(1.0)).max().item() < 5e-12
+
+
+@pytest.mark.parametrize("N", [3, 5])
+def test_nd_filter_on_card_matches_cpu_plain_path(cuda, N):
+    """Prey–predator central filter, poly TME-2, B = 8, T = 20, through
+    K2 (N=3) or K3 + cuSOLVER eigh (N=5) on the card vs the same filter on
+    the CPU (plain versions): nell rtol 1e-10, two launches a step."""
+    B, T = 8, 20
+    mis = nd_mi.generate_graded_lexico_multi_indices(2, 2 * N - 1)
+    inds = nd_mi.gram_and_hankel_indices_graded_lexico(N, 2)
+    ys = np.random.RandomState(0).binomial(1, 0.5, (T, B, 1)).astype(np.float64)
+    nells = {}
+    for dev in ("cpu", "cuda"):
+        model = prey_predator(mis, device=dev)
+        poly = poly_tme_nd(model.drift, model.dispersion, model.dt, 2, mis, 2, 1, device=dev)
+        ic = model.init_cond
+        before = qnd.EIGH_LAUNCHES + qnd.K_LAUNCHES
+        _, _, nell = moment_filter_nd_cms(
+            poly.cms, poly.mean, model.measurement_cond_pdf, torch.as_tensor(ys, device=dev),
+            (mis, inds), ic.cms.expand(B, -1), ic.mean.expand(B, 2),
+            eigh_impl="auto" if dev == "cuda" else "fused",
+            predict_fn=poly.predict_cms)
+        nells[dev] = nell.cpu()
+        assert qnd.EIGH_LAUNCHES + qnd.K_LAUNCHES - before == (2 * T if dev == "cuda" else 0)
+    np.testing.assert_allclose(nells["cuda"].numpy(), nells["cpu"].numpy(), rtol=1e-10)
