@@ -9,9 +9,10 @@ against its plain PyTorch version:
   the f64 ``stable=True`` LAPACK path on the card), through K1
   (``csrc/quadrature_1d.cu``);
 - ND: the 2D prey–predator central-moment filter with the polynomial
-  TME-2, B=1024, T=2000, at N=7 through K3 + cuSOLVER eigh and at N=3
-  through K2 (``csrc/quadrature_nd.cu``), with 64 trials re-run on the
-  CPU through the plain versions in worker processes.
+  TME-2, B=1024, at N=7 (T=2000) and N=11 (T=50) through nd_ldl +
+  nd_ksolve + cuSOLVER eigh and at N=3 (T=2000) through K2
+  (``csrc/quadrature_nd.cu``), with 64, 64 and 16 trials re-run
+  on the CPU through the plain versions in worker processes.
 
     python3 chip_smoke.py
 
@@ -37,11 +38,15 @@ TIER1_BUCKET = 512
 TIER1_JITTER = 1e-8
 CPU_SUBSET = 256
 FORCED_LOST = 600  # > one tier-1 bucket: the forced rescue runs two
-# NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; FP64 outside the
-# tensor cores at 34 TFLOP/s (an FMA counts as two operations).  K1 is
-# scalar FP64 code, so the FP64 tensor-core rate does not apply.
+# NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s; FP64 at 34 TFLOP/s
+# outside the tensor cores and 67 TFLOP/s on them (an FMA counts as two
+# operations).  K1 (scalar recurrences) and K2 (2x2 rotations) are held
+# to the first rate.  The K-builder pair (nd_ldl, nd_ksolve) is held to
+# the second: a blocked LDL and blocked triangular solves put nearly all
+# their operations in FP64 matrix products, which the tensor cores run.
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOP_PER_S = 34e12
+FP64_TC_FLOP_PER_S = 67e12
 SPIN_CYCLES = 200_000_000  # ~0.1 s at the H100's ~1.98 GHz boost clock
 
 
@@ -482,26 +487,53 @@ def phase_profile(model, trans):
 # ---------------------------------------------------------------------------
 
 ND_B = 1024
-ND_T = 2000
-ND_ORDERS = (7, 3)  # N=7: s=28, K3 + f64 eigh; N=3: s=6, K2
+# Steps of each order's pass.  N=7 (s=28, nd_ldl + nd_ksolve + f64 eigh)
+# and N=3 (s=6, K2) run the model's own T=2000.  N=11 (s=66, nd_ldl + nd_ksolve + f64
+# eigh) is cut below the JAX experiments' T=200: cuSOLVER's eigh loops
+# over the 2,048 66x66 matrices one by one (~1.9 s a call, two calls a
+# step on an H100), so T=200 alone would take ~800 s of the run's
+# 1,200 s limit; T=50 keeps the whole run near half of it.
+ND_T = {7: 2000, 3: 2000, 11: 50}
+ND_ORDERS = tuple(ND_T)
 ND_SUBSTEPS = 10  # Milstein sub-steps per observation (the model's own 100 is cut)
-ND_CPU_SUBSET = 64
-# The least finite share each order must keep over T=2000, just below the
-# card's reading (0.540 at N=7, 0.976 at N=3).  The JAX package's f64
-# filter loses the same trials at the same steps on the CPU
+ND_CPU_SUBSET = {7: 64, 3: 64, 11: 16}
+# The least finite share each order must keep, just below the card's
+# reading over T=2000 (0.540 at N=7, 0.976 at N=3).  The JAX package's
+# f64 filter loses the same trials at the same steps on the CPU
 # (tests/nd_divergence_vs_jax.py), so these losses are the f64 filter's,
-# not the port's.
-ND_FINITE_MIN = {7: 0.53, 3: 0.96}
+# not the port's.  At N=11 the JAX experiments kept every trial over
+# T=200 (experiments/SUMMARY_prey_predator.json).
+ND_FINITE_MIN = {7: 0.53, 3: 0.96, 11: 1.0}
+# Above this, 10 eps cond(G') says the equilibrated Gram's factor is not
+# determined to 1% by the data: kernel and plain version are then held by
+# the rules' moment reproduction, not by their factors.
+ILL_CONDITIONED = 1e-2
+EPS = 2.2e-16
 
 
-def k3_flops(s, d):
-    """FP64 operations K3 does per trial, counted from
-    ``csrc/quadrature_nd.cu::nd_k_kernel`` (add, sub, mul, div, sqrt one
-    each; nothing depends on the data)."""
-    equil = 2 * s + 2 * s * s
-    ldl = sum((s - j) * 3 * j + 3 + (s - 1 - j) for j in range(s))
-    per_dim = 2 * s * s + 2 * s * s * (s - 1) + 6 * s * s
-    return equil + ldl + d * per_dim
+def ldl_flops(s):
+    """FP64 operations the equilibrated LDL needs per trial (add, sub,
+    mul, div, sqrt one each; nothing depends on the data): c_j = 1/sqrt(G_jj),
+    the lower triangle of G' (2 an entry), and for column j the products
+    v_k = L_jk d_k (k < j), the pivot (2j + its guard and scale), and
+    each row below it (2j + the division).  nd_ldl forms L_ik d_k L_jk
+    in each row's sum, 3j a row: that extra work is the kernel's."""
+    equil = 2 * s + s * (s + 1)
+    return equil + sum(j + 2 * j + 3 + (s - 1 - j) * (2 * j + 1) for j in range(s))
+
+
+def ksolve_flops(s, d):
+    """FP64 operations the d operators K_m = S^-1 Lu^-1 H'_m Lu^-T S^-1
+    need per trial, given the factor: the H'_m gather (2 an entry); the
+    whole first unit solve W = Lu^-1 H'_m (an FMA per k < i in each of s
+    columns); the second, Y = W Lu^-T, only on the lower triangle, since
+    Y is symmetric (entry (i, j <= i) needs j FMAs); the scaling and the
+    symmetrisation of the s(s+1)/2 entries kept (2 each).  nd_ksolve
+    solves for the whole Y and symmetrises every entry: that extra work
+    is the kernel's, not the function's, and is not counted."""
+    first = s * s * (s - 1)
+    second = (s - 1) * s * (s + 1) // 3
+    return d * (2 * s * s + first + second + 2 * s * (s + 1))
 
 
 def k2_flops(s, d, sweeps):
@@ -560,7 +592,76 @@ def conditioned_tol(ms, inds, K):
     last-bit difference by the equilibrated Gram's conditioning, which in
     the filter's regime reaches ~1e7 at s=10 and ~1e10 at s=28."""
     kmax = K.flatten(1).abs().amax(-1)
-    return kmax * (1e-13 + 10 * 2.2e-16 * equilibrated_gram_cond(ms, inds))
+    return kmax * (1e-13 + 10 * EPS * equilibrated_gram_cond(ms, inds))
+
+
+def pair_checks(ms, mis, inds):
+    """nd_ldl and nd_ksolve against their plain versions on the same card
+    inputs, nd_ksolve also alone (fed the plain factor).  Per trial:
+    - finite in both, with 10 eps cond(G') <= ILL_CONDITIONED: Lu, the
+      pivots, 1/scale and K within ``conditioned_tol`` (scaled by each
+      quantity's own max), c to 1e-15 relative (the same IEEE operations);
+    - finite in both but worse conditioned: the rule of the kernel route
+      ("fused": the pair + f64 eigh) reproduces the moments no worse than
+      10x the f64 "refined" route's rule + 1e-12 (relative, per moment;
+      where Cholesky fails and "refined" is NaN, 10x the plain versions'
+      rule on the CPU);
+    - the kernels and the plain versions agree on which trials are finite.
+    Returns (fields, ok, factor), ``factor`` the kernel's (Lu, c, 1/scale)."""
+    from mfs_tpu_torch.multi_dims.quadrature import moment_quadrature_nd
+    from mfs_tpu_torch.ops import quadrature_nd_kernel as qnd
+    Lu, piv, c, isc = qnd.nd_ldl_fused(ms, inds)
+    K = qnd.nd_ksolve_fused(ms, inds, Lu, c, isc)
+    torch.cuda.synchronize()
+    Lup, pivp, cp, iscp = qnd.nd_ldl_plain(ms, inds)
+    Kp = qnd.nd_ksolve_plain(ms, inds, Lup, cp, iscp)
+    K_alone = qnd.nd_ksolve_fused(ms, inds, Lup, cp, iscp)
+    torch.cuda.synchronize()
+    trial_finite = lambda X: torch.isfinite(X).flatten(1).all(-1)
+    fin, finp = trial_finite(K), trial_finite(Kp)
+    both = fin & finp
+    cond = torch.full_like(ms[:, 0], float("inf"))
+    cond[both] = equilibrated_gram_cond(ms[both], inds)
+    well = both & (10 * EPS * cond <= ILL_CONDITIONED)
+    ill = both & ~well
+    tol = 1e-13 + 10 * EPS * cond[well]
+
+    def gap(X, Xp):
+        if not well.any():
+            return 0.0, 0.0
+        d = (X - Xp)[well].flatten(1).abs().amax(-1)
+        return d.max().item(), (d / (Xp[well].flatten(1).abs().amax(-1) * tol)).max().item()
+
+    fields = dict(trials=ms.shape[0], well_conditioned=int(well.sum()), ill_conditioned=int(ill.sum()),
+                  max_gram_cond=cond[both].max().item(),
+                  nonpositive_pivot_trials=int(((pivp <= 0).any(-1) & both).sum()),
+                  finite_agree=bool((fin == finp).all()),
+                  c_max_rel_gap=((c - cp)[both].abs() / cp[both].abs()).max().item())
+    over = []
+    for name, X, Xp in (("Lu", Lu, Lup), ("piv", piv, pivp), ("inv_scale", isc, iscp),
+                        ("K", K, Kp), ("K_ksolve_alone", K_alone, Kp)):
+        g, o = gap(X, Xp)
+        fields[f"{name}_max_abs_gap"], fields[f"{name}_max_gap_over_tol"] = g, o
+        over.append(o)
+    ill_ok = True
+    if ill.any():
+        sub = ms[ill]
+        res = {}
+        for route, (m, impl) in (("fused", (sub, "fused")), ("refined", (sub, "refined")),
+                                 ("plain", (sub.cpu(), "fused"))):
+            w, x = moment_quadrature_nd(m, inds, eigh_impl=impl)
+            res[route] = _rel_reproduction(w, x, m, mis).to(ms.device)
+        ref = torch.where(torch.isfinite(res["refined"]), res["refined"], res["plain"])
+        ill_ok = bool((res["fused"] <= 10 * ref + 1e-12).all())
+        fields.update(ill_moment_residual_max=res["fused"].max().item(),
+                      ill_refined_residual_max=res["refined"].nan_to_num(-1.0).max().item(),
+                      ill_refined_nan=int((~torch.isfinite(res["refined"])).sum()),
+                      ill_plain_residual_max=res["plain"].max().item(),
+                      ill_worst_over_ref=(res["fused"] / (10 * ref + 1e-12)).max().item())
+    ok = (max(over) <= 1.0 and fields["c_max_rel_gap"] <= 1e-15 and ill_ok
+          and fields["finite_agree"])
+    fields.update(max_gap_over_tol=max(over))
+    return fields, ok, (Lu, c, isc)
 
 
 def k2_checks(ms, mis, inds, vals, vecs, vals_plain):
@@ -590,61 +691,59 @@ def k2_checks(ms, mis, inds, vals, vecs, vals_plain):
 
 
 def phase_nd_kernels_vs_plain():
-    """K2 at d=2, s in {3, 6, 10} and d=3, s=10; K3 at s in {15, 21, 28};
-    each at B=1024 and at the ragged B=1021, on mixture central moments,
-    with one trial NaN.  Bounds, per trial finite in both:
-    - K3: |K - K_plain| within the conditioned tolerance
-      max|K| (1e-13 + 10 eps cond(G')) (``conditioned_tol``);
-    - K2: sorted eigenvalues and the residual against the plain K within
-      the same tolerance (Weyl: an eigenvalue moves no more than K does),
-      orthonormality 1e-13, moment reproduction <= 10x the plain rule's
-      + 1e-12;
-    - both: the NaN trial comes out NaN, and the finite trials agree."""
+    """K2 at d=2, s in {3, 6, 10} and d=3, s=10, each at B=1024 and at the
+    ragged B=1021, on mixture central moments, with one trial NaN.  Per
+    trial finite in both: sorted eigenvalues and the residual against the
+    plain K within the conditioned tolerance max|K| (1e-13 + 10 eps
+    cond(G')) (``conditioned_tol``; Weyl: an eigenvalue moves no more than
+    K does), orthonormality 1e-13, moment reproduction <= 10x the plain
+    rule's + 1e-12; the NaN trial comes out NaN, and the finite trials
+    agree."""
     from mfs_tpu_torch.multi_dims.quadrature import moment_quadrature_nd
     from mfs_tpu_torch.ops import quadrature_nd_kernel as qnd
     rng = np.random.RandomState(1)
-    for kernel, cases in (("K2", ((2, 2), (3, 2), (4, 2), (3, 3))),
-                          ("K3", ((5, 2), (6, 2), (7, 2)))):
-        for N, d in cases:
-            for B in (ND_B, ND_B - 3):
-                ms, mis, inds = nd_mixture_moments(N, d, B, rng, "cuda")
-                ms[B // 2] = float("nan")
-                s = inds.shape[1]
-                fields = dict(kernel=kernel, N=N, d=d, s=s, B=B)
-                if kernel == "K3":
-                    K = qnd.nd_k_fused(ms, inds)
-                    torch.cuda.synchronize()
-                    Kp = qnd.nd_k_fused_plain(ms, inds)
-                    fin, finp = (torch.isfinite(k).flatten(1).all(-1) for k in (K, Kp))
-                    both = fin & finp
-                    gap = (K - Kp)[both].flatten(1).abs().amax(-1)
-                    over = (gap / conditioned_tol(ms[both], inds, Kp[both])).max().item()
-                    fields.update(max_abs_gap=gap.max().item(), max_gap_over_tol=over,
-                                  max_abs_K=Kp[both].abs().max().item(),
-                                  max_gram_cond=equilibrated_gram_cond(ms[both], inds).max().item(),
-                                  finite_agree=bool((fin == finp).all()),
-                                  nan_trial_nan=not bool(fin[B // 2]))
-                    ok = over <= 1.0
-                else:
-                    vals, vecs = qnd.nd_eigh_fused(ms, inds)
-                    torch.cuda.synchronize()
-                    vp, Vp = qnd.nd_eigh_fused_plain(ms, inds)
-                    both, checks = k2_checks(ms, mis, inds, vals, vecs, vp)
-                    wp_, xp_ = moment_quadrature_nd(ms.cpu(), inds, eigh_impl="fused")
-                    plain_res = _rel_reproduction(wp_, xp_, ms.cpu(), mis)[both.cpu()].max().item()
-                    fin = torch.isfinite(vals).flatten(1).all(-1)
-                    finp = torch.isfinite(vp).flatten(1).all(-1)
-                    fields.update(checks, moment_residual_plain=plain_res,
-                                  finite_agree=bool((fin == finp).all()),
-                                  nan_trial_nan=bool(torch.isnan(vals[B // 2]).all()
-                                                     and torch.isnan(vecs[B // 2]).all()))
-                    ok = (checks["max_eigenvalue_gap_over_tol"] <= 1.0
-                          and checks["max_residual_over_tol"] <= 1.0
-                          and checks["max_orthonormality_gap"] <= 1e-13
-                          and checks["moment_residual"] <= 10 * plain_res + 1e-12)
-                emit("nd_kernels_vs_plain", **fields)
-                if not (ok and fields["finite_agree"] and fields["nan_trial_nan"]):
-                    raise AssertionError(f"{kernel} disagrees with its plain version: {fields}")
+    for N, d in ((2, 2), (3, 2), (4, 2), (3, 3)):
+        for B in (ND_B, ND_B - 3):
+            ms, mis, inds = nd_mixture_moments(N, d, B, rng, "cuda")
+            ms[B // 2] = float("nan")
+            fields = dict(kernel="K2", N=N, d=d, s=inds.shape[1], B=B)
+            vals, vecs = qnd.nd_eigh_fused(ms, inds)
+            torch.cuda.synchronize()
+            vp, Vp = qnd.nd_eigh_fused_plain(ms, inds)
+            both, checks = k2_checks(ms, mis, inds, vals, vecs, vp)
+            wp_, xp_ = moment_quadrature_nd(ms.cpu(), inds, eigh_impl="fused")
+            plain_res = _rel_reproduction(wp_, xp_, ms.cpu(), mis)[both.cpu()].max().item()
+            fin = torch.isfinite(vals).flatten(1).all(-1)
+            finp = torch.isfinite(vp).flatten(1).all(-1)
+            fields.update(checks, moment_residual_plain=plain_res,
+                          finite_agree=bool((fin == finp).all()),
+                          nan_trial_nan=bool(torch.isnan(vals[B // 2]).all()
+                                             and torch.isnan(vecs[B // 2]).all()))
+            ok = (checks["max_eigenvalue_gap_over_tol"] <= 1.0
+                  and checks["max_residual_over_tol"] <= 1.0
+                  and checks["max_orthonormality_gap"] <= 1e-13
+                  and checks["moment_residual"] <= 10 * plain_res + 1e-12)
+            emit("nd_kernels_vs_plain", **fields)
+            if not (ok and fields["finite_agree"] and fields["nan_trial_nan"]):
+                raise AssertionError(f"K2 disagrees with its plain version: {fields}")
+
+
+def phase_nd_k_vs_plain():
+    """nd_ldl and nd_ksolve, d=2, at s=15, 21, 28 (N=5, 6, 7; B=1024 and
+    the ragged 1021) and s=36, 66 (N=8, 11; B=1024), on mixture central
+    moments with one trial NaN (``pair_checks``): the NaN trial comes out
+    NaN, and each kernel agrees with its plain version."""
+    rng = np.random.RandomState(2)
+    for N, B in ((5, ND_B), (5, ND_B - 3), (6, ND_B), (6, ND_B - 3), (7, ND_B), (7, ND_B - 3),
+                 (8, ND_B), (11, ND_B)):
+        ms, mis, inds = nd_mixture_moments(N, 2, B, rng, "cuda")
+        ms[B // 2] = float("nan")
+        fields, ok, (Lu, _, _) = pair_checks(ms, mis, inds)
+        fields.update(N=N, d=2, s=inds.shape[1], B=B,
+                      nan_trial_nan=bool(torch.isnan(Lu[B // 2]).any()))
+        emit("nd_k_vs_plain", **fields)
+        if not (ok and fields["nan_trial_nan"]):
+            raise AssertionError(f"nd_ldl / nd_ksolve disagree with their plain versions: {fields}")
 
 
 def nd_setup(N, device):
@@ -677,16 +776,18 @@ def phase_nd_data():
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = prey_predator(np.zeros((1, 2), dtype=np.int64), device="cuda")
     _, xss, yss = model.simulate(gen, ND_B, ND_SUBSTEPS)
-    xss, yss = xss[:ND_T], yss[:ND_T]
+    T = max(ND_T.values())
+    xss, yss = xss[:T], yss[:T]
     torch.cuda.synchronize()
-    emit("nd_data", B=ND_B, T=ND_T, substeps=ND_SUBSTEPS, seconds=time.perf_counter() - t0,
+    emit("nd_data", B=ND_B, T=T, substeps=ND_SUBSTEPS, seconds=time.perf_counter() - t0,
          state_range=[xss.min().item(), xss.max().item()], y_mean=yss.mean().item())
     return xss, yss
 
 
 def nd_cpu_filter(N, ys, threads):
     """The ND filter at order N on CPU tensors, where the fused wrappers
-    run the plain versions of K2 and K3; run in a worker process.
+    run the plain versions of K2, nd_ldl and nd_ksolve; run in a worker
+    process.
     Returns (nell, seconds)."""
     torch.set_num_threads(threads)
     setup = nd_setup(N, "cpu")
@@ -696,55 +797,67 @@ def nd_cpu_filter(N, ys, threads):
 
 
 def start_nd_cpu_reference(pool, yss):
-    """Start the CPU reference on the first 64 trials in the worker pool,
-    after the timed phases, so that it runs while the card does the
-    kernel checks: each order's trials in two halves, one process each
-    (N=7 with 2 threads, N=3 with 1)."""
-    half = ND_CPU_SUBSET // 2
-    ys = yss[:, :ND_CPU_SUBSET].cpu().numpy()
-    return {N: [pool.apply_async(nd_cpu_filter, (N, ys[:, lo:lo + half], 2 if N == 7 else 1))
-                for lo in (0, half)] for N in ND_ORDERS}
+    """Start the CPU reference on each order's first ``ND_CPU_SUBSET``
+    trials in the worker pool, after the timed phases, so that it runs
+    while the card does the kernel checks: N=7 and N=3 in two halves, one
+    process each (2 and 1 threads), N=11 in one process (2 threads)."""
+    jobs = {}
+    for N in ND_ORDERS:
+        n = ND_CPU_SUBSET[N]
+        ys = yss[:ND_T[N], :n].cpu().numpy()
+        parts = (0, n // 2) if N != 11 else (0,)
+        step = n // len(parts)
+        jobs[N] = [pool.apply_async(nd_cpu_filter, (N, ys[:, lo:lo + step], 1 if N == 3 else 2))
+                   for lo in parts]
+    return jobs
+
+
+ND_ROUTE_KERNELS = {"nd_eigh": ("K2",), "nd_k": ("nd_ldl", "nd_ksolve")}
 
 
 def phase_nd_main_path(smi, xss, yss):
-    """Prey–predator central filter, poly TME-2, B=1024, T=2000, through
-    "auto": at N=7 every quadrature is one K3 launch (+ cuSOLVER eigh),
-    at N=3 one K2 launch.  Each pass runs with every count set to 0 just
-    before and read just after: exactly 2*T launches of its kernel and
-    none of the other.  Outputs are checked for shape, a finite share of
-    at least ``ND_FINITE_MIN[N]`` (in f64 some trials lose a realisable
-    moment vector after step ~600, in the JAX package's filter as well)
-    and a mean absolute error of the filtering mean below 0.2 (the state
-    is ~1)."""
+    """Prey–predator central filter, poly TME-2, B=1024, through "auto",
+    T=``ND_T[N]``: at N=7 and N=11 every quadrature is one nd_ldl and one
+    nd_ksolve launch (+ cuSOLVER eigh), at N=3 one K2 launch.  Each pass
+    runs with every count set to 0 just before and read just after:
+    exactly 2*T launches of each of its kernels and none of the others.
+    Returns the setups, the outputs and each pass's launches.  Outputs are checked for shape, a
+    finite share of at least ``ND_FINITE_MIN[N]`` (in f64 some trials lose
+    a realisable moment vector after step ~600, in the JAX package's
+    filter as well) and a mean absolute error of the filtering mean below
+    0.2 (the state is ~1)."""
     from mfs_tpu_torch.ops import quadrature_kernel as qk
     from mfs_tpu_torch.ops import quadrature_nd_kernel as qnd
+    from mfs_tpu_torch.ops.dispatch import fused_nd_kernel
     setups, outs = {}, {}
     launches = {}
     for N in ND_ORDERS:
+        T = ND_T[N]
         setups[N] = setup = nd_setup(N, "cuda")
         s = setup[1].shape[1]
-        kernel = "K3" if s > 10 else "K2"
+        kernels = ND_ROUTE_KERNELS[fused_nd_kernel(s, 2)]
         torch.cuda.reset_peak_memory_stats()
-        qk.LAUNCHES = qnd.EIGH_LAUNCHES = qnd.K_LAUNCHES = 0
+        qk.LAUNCHES = qnd.EIGH_LAUNCHES = qnd.LDL_LAUNCHES = qnd.KSOLVE_LAUNCHES = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cmss, means, nell = run_nd_filter(setup, yss, "auto")
+        cmss, means, nell = run_nd_filter(setup, yss[:T], "auto")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {"K1": qk.LAUNCHES, "K2": qnd.EIGH_LAUNCHES, "K3": qnd.K_LAUNCHES}
-        launches[kernel] = counts[kernel]
+        counts = {"K1": qk.LAUNCHES, "K2": qnd.EIGH_LAUNCHES,
+                  "nd_ldl": qnd.LDL_LAUNCHES, "nd_ksolve": qnd.KSOLVE_LAUNCHES}
+        launches[N] = {k: counts[k] for k in kernels}
         finite = torch.isfinite(nell) & torch.isfinite(means).all(-1).all(0)
-        err = (means - xss)[:, finite].abs().mean().item() if finite.any() else float("nan")
-        outs[N] = dict(cmss=cmss, nell=nell, finite=finite)
+        err = (means - xss[:T])[:, finite].abs().mean().item() if finite.any() else float("nan")
+        outs[N] = dict(cmss=cmss, nell=nell, finite=finite, ms_per_step=wall / T * 1e3)
         z = setup[0].shape[0]
-        emit("nd_main_path", N=N, s=s, z=z, nodes=s * s, T=ND_T, B=ND_B,
-             kernel=kernel, launches=counts, wall_s=wall, trials_per_s=ND_B / wall,
-             finite_frac=finite.double().mean().item(), mean_abs_err=err,
-             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi)
-        expected = {"K1": 0, "K2": 0, "K3": 0, kernel: 2 * ND_T}
+        emit("nd_main_path", N=N, s=s, z=z, nodes=s * s, T=T, B=ND_B,
+             kernels=list(kernels), launches=counts, wall_s=wall, trials_per_s=ND_B / wall,
+             ms_per_step=wall / T * 1e3, finite_frac=finite.double().mean().item(),
+             mean_abs_err=err, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi)
+        expected = {k: 2 * T if k in kernels else 0 for k in counts}
         if counts != expected:
             raise AssertionError(f"N={N}: launches {counts}, expected {expected}")
-        if cmss.shape != (ND_T, ND_B, z) or means.shape != (ND_T, ND_B, 2):
+        if cmss.shape != (T, ND_B, z) or means.shape != (T, ND_B, 2):
             raise AssertionError("ND main-path outputs have the wrong shape")
         if not (finite.double().mean().item() >= ND_FINITE_MIN[N] and err < 0.2):
             raise AssertionError(f"N={N}: finite_frac {finite.double().mean().item()}, "
@@ -752,93 +865,143 @@ def phase_nd_main_path(smi, xss, yss):
     return setups, outs, launches
 
 
-def phase_nd_timing(setups, outs):
-    """K3 (N=7) and K2 (N=3) on the main path's own inputs: the moment
-    vectors of step T/2, B=1024.  Kernel and plain version by CUDA events
-    (20 and 3 launches); the bound from k3_flops/k2_flops (K2 with this
-    input's Jacobi sweeps) and the bytes; the multi-call library
-    yardstick cholesky_ex + 2 solve_triangular per dimension (+ eigh for
-    K2).  No single PyTorch call computes either function, so
-    ``library_ms`` is null."""
+def pair_timing(N, ms, mis, inds, ms_per_step):
+    """nd_ldl and nd_ksolve on the main path's inputs: ``pair_checks``,
+    each kernel and its plain version by CUDA events (20 and 3 launches),
+    the bounds from ldl_flops/ksolve_flops and the bytes (each input read
+    once, each output written once), the library yardsticks (cholesky_ex
+    of G for nd_ldl; the two solve_triangular calls per dimension for
+    nd_ksolve), and cuSOLVER's f64 eigh of the K_m, the step's other
+    quadrature call, with its share of the step."""
     from mfs_tpu_torch.ops import quadrature_nd_kernel as qnd
+    d, s = inds.shape[0] - 1, inds.shape[1]
+    B, z = ms.shape
+    fields, ok, (Lu, c, isc) = pair_checks(ms, mis, inds)
+    if not ok:
+        raise AssertionError(f"nd_ldl / nd_ksolve disagree with their plain versions on "
+                             f"main-path inputs: {fields}")
+    idx = torch.as_tensor(inds, device="cuda")
+    G, H = ms[:, idx[0]], ms[:, idx[1:]]
+    R = torch.linalg.cholesky_ex(G)[0][:, None]
+    K = qnd.nd_ksolve_fused(ms, inds, Lu, c, isc)
+
+    def solves():
+        X = torch.linalg.solve_triangular(R, H, upper=False)
+        return torch.linalg.solve_triangular(R.mT, X, upper=True, left=False)
+
+    ldl_bytes = (B * z + B * s * s + 3 * B * s) * 8 + s * s * 4
+    ksolve_bytes = (B * z + B * s * s + 2 * B * s + B * d * s * s) * 8 + d * s * s * 4
+    runs = {
+        "nd_ldl": (lambda: qnd.nd_ldl_fused(ms, inds), lambda: qnd.nd_ldl_plain(ms, inds),
+                   lambda: torch.linalg.cholesky_ex(G), "cholesky_ex of G",
+                   ldl_flops(s) * B, ldl_bytes, fields["Lu_max_abs_gap"]),
+        "nd_ksolve": (lambda: qnd.nd_ksolve_fused(ms, inds, Lu, c, isc),
+                      lambda: qnd.nd_ksolve_plain(ms, inds, Lu, c, isc), solves,
+                      "2 solve_triangular, batched over the d dimensions",
+                      ksolve_flops(s, d) * B, ksolve_bytes, fields["K_ksolve_alone_max_abs_gap"]),
+    }
+    rows = {}
+    for name, (run, plain, lib, lib_note, ops, nbytes, err) in runs.items():
+        kernel_ms = cuda_ms(run, reps=20)
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        library_path_ms = cuda_ms(lib, reps=3, warmup=1)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP64_TC_FLOP_PER_S
+        rows[name] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+                          bound_by="bytes" if t_bytes > t_ops else "operations", max_abs_err=err)
+        emit("nd_timing", kernel=name, N=N, s=s, d=d, B=B, kernel_ms=kernel_ms, plain_ms=plain_ms,
+             f64_library_path_ms=library_path_ms,
+             f64_library_path_note=lib_note + "; multi-call yardstick",
+             bound_ms=rows[name]["bound_ms"], bound_by=rows[name]["bound_by"], fp64_ops=ops,
+             bytes=nbytes, max_abs_err=err)
+    eigh_ms = cuda_ms(lambda: torch.linalg.eigh(K), reps=2, warmup=1)
+    pair_ms = rows["nd_ldl"]["ms"] + rows["nd_ksolve"]["ms"]
+    emit("nd_timing_checks", N=N, **fields)
+    emit("nd_timing_eigh", N=N, matrices=B * d, s=s, eigh_ms=eigh_ms, pair_ms=pair_ms,
+         ms_per_step=ms_per_step, eigh_share_of_step=2 * eigh_ms / ms_per_step,
+         pair_share_of_step=2 * pair_ms / ms_per_step)
+    return rows
+
+
+def phase_nd_timing(setups, outs):
+    """Each ND order's kernels on the main path's own inputs: the moment
+    vectors of step T/2, B=1024, the trials still finite.  nd_ldl and
+    nd_ksolve (N=7 and N=11): ``pair_timing``.  K2 (N=3): kernel and plain
+    version by CUDA events (20 and 3 launches); the bound from k2_flops
+    with this input's Jacobi sweeps and the bytes; the multi-call library
+    yardstick cholesky_ex + 2 solve_triangular per dimension + eigh.  The
+    route is ``ops/dispatch.py``'s.  No single PyTorch call computes any
+    of these functions, so ``library_ms`` is null.  Returns the rows by
+    (kernel, N)."""
+    from mfs_tpu_torch.ops import quadrature_nd_kernel as qnd
+    from mfs_tpu_torch.ops.dispatch import fused_nd_kernel
     rows = {}
     for N in ND_ORDERS:
         mis, inds, _, _ = setups[N]
         d, s = inds.shape[0] - 1, inds.shape[1]
-        ms = outs[N]["cmss"][ND_T // 2]
+        ms = outs[N]["cmss"][ND_T[N] // 2]
         ms = ms[torch.isfinite(ms).all(-1)].contiguous()
         B, z = ms.shape
+        if fused_nd_kernel(s, d) == "nd_k":
+            for name, row in pair_timing(N, ms, mis, inds, outs[N]["ms_per_step"]).items():
+                rows[name, N] = row
+            continue
         idx = torch.as_tensor(inds, device="cuda")
 
-        def library(eigh):
+        def library():
             R, _ = torch.linalg.cholesky_ex(ms[:, idx[0]])
             R = R[:, None]
             X = torch.linalg.solve_triangular(R, ms[:, idx[1:]], upper=False)
-            K = torch.linalg.solve_triangular(R.mT, X, upper=True, left=False)
-            return torch.linalg.eigh(K) if eigh else K
+            return torch.linalg.eigh(torch.linalg.solve_triangular(R.mT, X, upper=True,
+                                                                   left=False))
 
-        if s > 10:
-            name = "K3"
-            run, plain = (lambda: qnd.nd_k_fused(ms, inds)), (lambda: qnd.nd_k_fused_plain(ms, inds))
-            K, Kp = run(), plain()
-            torch.cuda.synchronize()
-            err = (K - Kp).abs().max().item()
-            over = ((K - Kp).flatten(1).abs().amax(-1) / conditioned_tol(ms, inds, Kp)).max().item()
-            ops = k3_flops(s, d) * B
-            lib = lambda: library(False)
-            extra = {}
-        else:
-            name = "K2"
-            run = lambda: qnd.nd_eigh_fused(ms, inds)
-            plain = lambda: qnd.nd_eigh_fused_plain(ms, inds)
-            vals, vecs = run()
-            torch.cuda.synchronize()
-            # the plain version stops each Jacobi run on the kernel's test
-            vp, _, sweeps = qnd.nd_eigh_fused_plain(ms, inds, return_sweeps=True)
-            _, checks = k2_checks(ms, mis, inds, vals, vecs, vp)
-            err = checks["max_eigenvalue_gap"]
-            over = max(checks["max_eigenvalue_gap_over_tol"], checks["max_residual_over_tol"])
-            sw = sweeps.cpu().numpy()
-            ops = sum(k2_flops(s, d, [int(n) for n in row]) for row in sw)
-            lib = lambda: library(True)
-            extra = dict(checks, sweeps_mean=float(sw.mean()), sweeps_max=int(sw.max()))
-        # ms in, K (K3) or vals + vecs (K2) out, and the int32 index tables
+        run = lambda: qnd.nd_eigh_fused(ms, inds)
+        plain = lambda: qnd.nd_eigh_fused_plain(ms, inds)
+        vals, vecs = run()
+        torch.cuda.synchronize()
+        # the plain version stops each Jacobi run on the kernel's test
+        vp, _, sweeps = qnd.nd_eigh_fused_plain(ms, inds, return_sweeps=True)
+        _, checks = k2_checks(ms, mis, inds, vals, vecs, vp)
+        err = checks["max_eigenvalue_gap"]
+        over = max(checks["max_eigenvalue_gap_over_tol"], checks["max_residual_over_tol"])
+        sw = sweeps.cpu().numpy()
+        ops = sum(k2_flops(s, d, [int(n) for n in row]) for row in sw)
         if not over <= 1.0:
-            raise AssertionError(f"{name} disagrees with its plain version on main-path inputs")
-        nbytes = (B * z + B * d * s * s + (B * d * s if name == "K2" else 0)) * 8 \
-            + (d + 1) * s * s * 4
+            raise AssertionError("K2 disagrees with its plain version on main-path inputs")
+        # ms in, vals + vecs out, and the int32 index tables
+        nbytes = (B * z + B * d * s * s + B * d * s) * 8 + (d + 1) * s * s * 4
         kernel_ms = cuda_ms(run, reps=20)
         plain_ms = cuda_ms(plain, reps=3, warmup=1)
-        library_path_ms = cuda_ms(lib, reps=3, warmup=1)
+        library_path_ms = cuda_ms(library, reps=3, warmup=1)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP64_FLOP_PER_S
-        rows[name] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
-                          bound_by="bytes" if t_bytes > t_ops else "operations",
-                          max_abs_err=err)
-        emit("nd_timing", kernel=name, N=N, s=s, d=d, B=B, kernel_ms=kernel_ms, plain_ms=plain_ms,
+        rows["K2", N] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+                             bound_by="bytes" if t_bytes > t_ops else "operations",
+                             max_abs_err=err)
+        emit("nd_timing", kernel="K2", N=N, s=s, d=d, B=B, kernel_ms=kernel_ms, plain_ms=plain_ms,
              f64_library_path_ms=library_path_ms,
-             f64_library_path_note="cholesky_ex + 2 solve_triangular" + (" + eigh" if name == "K2"
-                                                                         else "")
-             + ", batched over the d dimensions; multi-call yardstick",
-             bound_ms=rows[name]["bound_ms"], bound_by=rows[name]["bound_by"],
-             fp64_ops=ops, bytes=nbytes, max_abs_err=err, max_gap_over_tol=over, **extra)
+             f64_library_path_note="cholesky_ex + 2 solve_triangular + eigh, batched over the d "
+                                   "dimensions; multi-call yardstick",
+             bound_ms=rows["K2", N]["bound_ms"], bound_by=rows["K2", N]["bound_by"],
+             fp64_ops=ops, bytes=nbytes, max_abs_err=err, max_gap_over_tol=over, **checks,
+             sweeps_mean=float(sw.mean()), sweeps_max=int(sw.max()))
     return rows
 
 
 def phase_nd_cpu_reference(outs, pending):
-    """The same filters on 64 trials copied to the CPU, where the fused
-    wrappers run the plain versions of K3 and K2 (in worker processes
-    started after the timed phases; ``cpu_seconds`` is the slower
-    half's): nell agrees with the
-    card's to rtol 1e-8 on every trial, and both keep the same trials."""
+    """The same filters on each order's first ``ND_CPU_SUBSET`` trials
+    copied to the CPU, where the fused wrappers run the plain versions of
+    K2, nd_ldl and nd_ksolve (in worker processes started after the
+    timed phases; ``cpu_seconds`` is the slowest part's): nell agrees with
+    the card's to rtol 1e-8 on every trial, and both keep the same trials."""
     for N in ND_ORDERS:
         parts = [job.get() for job in pending[N]]
         nell = torch.as_tensor(np.concatenate([p[0] for p in parts]))
         cpu_s = max(p[1] for p in parts)
-        card = outs[N]["nell"][:ND_CPU_SUBSET].cpu()
+        card = outs[N]["nell"][:ND_CPU_SUBSET[N]].cpu()
         fin, fin_card = torch.isfinite(nell), torch.isfinite(card)
         both = fin & fin_card
         rel = ((nell - card).abs() / card.abs())[both]
-        emit("nd_cpu_reference", N=N, trials=ND_CPU_SUBSET, T=ND_T, finite_in_both=int(both.sum()),
+        emit("nd_cpu_reference", N=N, trials=ND_CPU_SUBSET[N], T=ND_T[N],
+             finite_in_both=int(both.sum()),
              finite_agree=bool((fin == fin_card).all()), max_rel_gap=rel.max().item(),
              median_rel_gap=rel.median().item(), cpu_seconds=cpu_s)
         if not (bool((fin == fin_card).all()) and both.sum() > 0 and rel.max().item() < 1e-8):
@@ -846,10 +1009,14 @@ def phase_nd_cpu_reference(outs, pending):
 
 
 def phase_nd_profile(setups):
-    """Device busy share over two ND filter steps at B=1024, per order."""
+    """Device busy share over two ND filter steps at B=1024, at N=7 and
+    N=3.  N=11 is not profiled: cuSOLVER's eigh there decomposes the
+    2,048 matrices one at a time, each by a sequence of small kernels, and
+    the profiler's processing of so many events takes minutes;
+    ``nd_timing_eigh`` gives that step's breakdown instead."""
     from torch.profiler import ProfilerActivity, profile
     ys = torch.ones((2, ND_B, 1), dtype=torch.float64, device="cuda")
-    for N in ND_ORDERS:
+    for N in (7, 3):
         run_nd_filter(setups[N], ys, "auto")
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -889,25 +1056,42 @@ def main():
     nd_rows = phase_nd_timing(setups, outs)
     phase_nd_profile(setups)
     # Then the checks, while the ND CPU reference runs in worker processes.
-    with multiprocessing.get_context("spawn").Pool(4) as pool:  # terminated on exit
+    with multiprocessing.get_context("spawn").Pool(5) as pool:  # terminated on exit
         pending = start_nd_cpu_reference(pool, yss)
         phase_kernel_vs_plain()
         phase_rescue_tiers(model, trans, ys, tier0_out)
         phase_cpu_reference(model, trans, ys, tier0_out)
         phase_nd_kernels_vs_plain()
+        phase_nd_k_vs_plain()
         phase_nd_cpu_reference(outs, pending)
     k1 = {"name": "quadrature_1d", "route": "cuda",
           "source": "mfs_tpu_torch/csrc/quadrature_1d.cu",
           "replaces": "mfs_tpu/ops/pallas_quadrature.py:95", "launches": launches,
           **{k: timing[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
           "library_ms": None}
-    nd = [{"name": name, "route": "cuda", "source": "mfs_tpu_torch/csrc/quadrature_nd.cu",
-           "replaces": replaces, "launches": nd_launches[key],
-           **{k: nd_rows[key][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-           "library_ms": None}
-          for key, name, replaces in (
-              ("K2", "nd_eigh", "mfs_tpu/ops/pallas_quadrature_nd.py:70"),
-              ("K3", "nd_k", "mfs_tpu/ops/pallas_quadrature_nd.py:271"))]
+    # Each ND kernel's launches over every ND pass; its times and bound at
+    # the largest basis it ran on (K2: N=3; the pair: N=11), each pass's
+    # in "by_order".  The pair also replaces K3 (``_nd_k_kernel``), which
+    # computes the same K_m in one program on the TPU.
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    nd = []
+    for name, replaces, also in (
+            ("K2", "mfs_tpu/ops/pallas_quadrature_nd.py:70", []),
+            ("nd_ldl", "mfs_tpu/ops/pallas_quadrature_nd.py:396",
+             ["mfs_tpu/ops/pallas_quadrature_nd.py:561", "mfs_tpu/ops/pallas_quadrature_nd.py:576",
+              "mfs_tpu/ops/pallas_quadrature_nd.py:271"]),
+            ("nd_ksolve", "mfs_tpu/ops/pallas_quadrature_nd.py:471",
+             ["mfs_tpu/ops/pallas_quadrature_nd.py:516",
+              "mfs_tpu/ops/pallas_quadrature_nd.py:271"])):
+        orders = [N for N in ND_ORDERS if name in nd_launches[N]]
+        top = max(orders, key=lambda N: setups[N][1].shape[1])
+        nd.append({"name": "nd_eigh" if name == "K2" else name, "route": "cuda",
+                   "source": "mfs_tpu_torch/csrc/quadrature_nd.cu", "replaces": replaces,
+                   "also_replaces": also, "launches": sum(nd_launches[N][name] for N in orders),
+                   **{k: nd_rows[name, top][k] for k in keys}, "library_ms": None,
+                   "by_order": [{"N": N, "s": setups[N][1].shape[1],
+                                 "launches": nd_launches[N][name],
+                                 **{k: nd_rows[name, N][k] for k in keys}} for N in orders]})
     print(json.dumps({"kernels": [k1] + nd}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,16 @@
 // ND moment-quadrature kernels for Hopper (sm_90a), in f64: K2 (fused
-// eigenpairs) and K3 (the K-builder).
+// eigenpairs) and the K-builder pair nd_ldl / nd_ksolve.
 //
 // K2, mfs_nd_eigh, replaces the Pallas TPU kernel
-// mfs_tpu/ops/pallas_quadrature_nd.py::_nd_kernel (through nd_eigh_pallas);
-// K3, mfs_nd_k, replaces ::_nd_k_kernel (through nd_k_pallas).
-// Both start from a graded-lex moment vector ms (B, z), row-major, and the
+// mfs_tpu/ops/pallas_quadrature_nd.py::_nd_kernel (through nd_eigh_pallas).
+// mfs_nd_ldl and mfs_nd_ksolve together compute the K-builder: mfs_nd_ldl
+// replaces ::_nd_ldl_kernel, ::_nd_cvec_kernel and ::_nd_ldl_panel_kernel,
+// mfs_nd_ksolve replaces ::_nd_fsolve_kernel and ::_nd_tsolve_kernel (the
+// five programs of nd_k_pallas_staged, split there only to stay under the
+// Mosaic compiler's statement-count limit), and the two replace
+// ::_nd_k_kernel (through nd_k_pallas), which computes the same function
+// for s <= 28 in one program.
+// All start from a graded-lex moment vector ms (B, z), row-major, and the
 // index tables inds (d+1, s, s), int32: G = ms[inds[0]], H_m = ms[inds[1+m]].
 // Per trial:
 //   1. equilibration c_j = 1/sqrt(G_jj) (G_jj <= 1e-30 -> 1) and
@@ -15,7 +21,7 @@
 //      1e-35 in magnitude is replaced by a signed 1e-35 before dividing;
 //   3. K_m = R^{-1} H'_m R^{-T}, H'_m = (c_i H_ij) c_j, by two triangular
 //      solves, symmetrised 0.5 (K + K^T).
-//      K3: two unit solves W = Lu^{-1} H', Y = W Lu^{-T}, then
+//      nd_ksolve: two unit solves W = Lu^{-1} H', Y = W Lu^{-T}, then
 //          K_ij = (Y_ij / scale_i) / scale_j (as _nd_k_kernel);
 //      K2: each solve divides by scale[r] inside the recursion (as _nd_kernel).
 //   4. K2 only: cyclic Jacobi in f64 from V = I, in the round-robin order of
@@ -27,27 +33,34 @@
 // The TPU kernels' double-f32 arithmetic, lane blocks, VMEM caps and the
 // one-hot MXU gather are not ported: indices are read directly, and the
 // ragged batch edge is masked (no padding with a copy of trial 0).
-// A trial whose moments are not finite comes out NaN: K3 by propagation,
-// K2 by an explicit check of K before the Jacobi stage.
+// A trial whose moments are not finite comes out NaN: nd_ldl / nd_ksolve by
+// propagation, K2 by an explicit check of K before the Jacobi stage.
 //
 // Layouts and bounds:
 // - K2: one thread per (trial, dimension), s <= 10, d <= 3; each thread
 //   redoes the trial's LDL (O(s^3/6), cheaper than sharing it).  The s x s
 //   matrices live in local memory.  Bound: FP64 operations of the Jacobi
 //   sweeps (~9 s^3 per sweep per dimension), not bytes.
-// - K3: one warp per trial, s <= 32: lanes over rows for the gather and
-//   the LDL, over columns for W = Lu^{-1} H', over rows of W for the second
-//   solve, over columns when writing K (coalesced rows of the (B, d, s, s)
-//   output).  L and W sit in shared memory with an odd row stride, so the
-//   lane-strided accesses do not conflict on banks.  Bound: FP64
-//   operations (~2 d s^3 per trial) against ~(z + d s^2) * 8 bytes.
+// - nd_ldl + nd_ksolve, s <= 119, in two launches.  nd_ldl: one 128-thread
+//   CTA per trial, one thread per row of the left-looking LDL (two
+//   __syncthreads per column), G' and then L in shared memory; it writes
+//   Lu (B, s, s), the guarded pivots, c and 1/scale.  nd_ksolve: one CTA
+//   per (trial, dimension), Lu and W = H'_m in shared memory (2 s (s|1)
+//   doubles, the odd row stride against bank conflicts: s <= 119 fits the
+//   227 KB opt-in); threads over columns for W = Lu^{-1} H', over rows of
+//   W for the second solve, over the flat output for the scaled,
+//   symmetrised, coalesced K.  The factor is computed once per trial and
+//   the d solves run as independent CTAs (2,048 at B = 1024, d = 2).
+//   Bound: bytes for both (Lu written, then read d times; K written); each
+//   thread's loop over k is sequential, so both sit well above it.
 // nvcc contracts a*b+c to FMA, which the plain PyTorch versions do not: the
 // two differ in the last bits.
 #include <cuda_runtime.h>
 
 #define MAXS_EIGH 10
 #define EIGH_THREADS 64
-#define K_WARPS 4
+#define LARGE_THREADS 128
+#define MAXS_LARGE 119
 #define MAX_SWEEPS 20
 #define JACOBI_TOL2 1e-28
 
@@ -192,86 +205,126 @@ nd_eigh_kernel(const double* __restrict__ ms, const int* __restrict__ inds,
 }
 
 // ---------------------------------------------------------------------------
-// K3: equilibrated LDL and two unit solves, one warp per trial
+// Large bases: nd_ldl (one CTA per trial) and nd_ksolve (one CTA per
+// (trial, dimension)); one thread per row or column, s <= 119 < 128
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(K_WARPS * 32)
-nd_k_kernel(const double* __restrict__ ms, const int* __restrict__ inds,
-            double* __restrict__ K, int d, int s, int z, int B) {
+__global__ void __launch_bounds__(LARGE_THREADS)
+nd_ldl_kernel(const double* __restrict__ ms, const int* __restrict__ ig,
+              double* __restrict__ Lu, double* __restrict__ piv_out,
+              double* __restrict__ c_out, double* __restrict__ isc_out, int s, int z) {
     extern __shared__ double smem[];
-    const int lane = threadIdx.x & 31;
-    const int w = threadIdx.x >> 5;
-    const int b = blockIdx.x * K_WARPS + w;
-    if (b >= B) return;  // whole warps leave; only __syncwarp is used below
-    const int ld = s | 1;  // odd row stride: lane-strided rows hit distinct banks
-    double* L = smem + (size_t)w * (2 * s * ld + 3 * s);
-    double* W = L + s * ld;
-    double* cv = W + s * ld;
-    double* piv = cv + s;
-    double* isc = piv + s;
+    const int ld = s | 1;
+    double* A = smem;         // s x ld: G' on and below the diagonal, then L below it
+    double* cv = A + s * ld;  // c
+    double* piv = cv + s;     // guarded pivots
+    double* isc = piv + s;    // 1/scale
+    double* dsh = isc + s;    // the current column's raw pivot
+    const int b = blockIdx.x, t = threadIdx.x;
     const double* mv = ms + (size_t)b * z;
     const int ss = s * s;
-    const bool on = lane < s;
-    const unsigned full = 0xffffffffu;
 
-    if (on) {
-        double g = mv[inds[lane * s + lane]];
+    // c_j = 1/sqrt(G_jj) (_nd_cvec_kernel), then G'_ij = (c_i G_ij) c_j, i >= j
+    if (t < s) {
+        double g = mv[ig[t * s + t]];
         if (g <= 1e-30) g = 1.0;
-        cv[lane] = 1.0 / sqrt(g);
+        cv[t] = 1.0 / sqrt(g);
     }
-    __syncwarp();
-    if (on)
-        for (int j = 0; j < s; ++j) L[lane * ld + j] = (cv[lane] * mv[inds[lane * s + j]]) * cv[j];
-    __syncwarp();
+    __syncthreads();
+    for (int e = t; e < ss; e += LARGE_THREADS) {
+        const int i = e / s, j = e - i * s;
+        if (j <= i) A[i * ld + j] = (cv[i] * mv[ig[e]]) * cv[j];
+    }
+    __syncthreads();
 
-    // ---- LDL^T, left-looking, lanes over rows i >= j ------------------
+    // left-looking LDL^T (_nd_ldl_kernel / _nd_ldl_panel_kernel), thread = row
     const double pivot_diag = 1e-8 * s;
     for (int j = 0; j < s; ++j) {
         double acc = 0.0;
-        if (on && lane >= j) {
-            acc = L[lane * ld + j];
-            for (int k = 0; k < j; ++k) acc -= L[lane * ld + k] * (piv[k] * L[j * ld + k]);
+        if (t >= j && t < s) {
+            acc = A[t * ld + j];
+            for (int k = 0; k < j; ++k) acc -= A[t * ld + k] * (piv[k] * A[j * ld + k]);
+            if (t == j) *dsh = acc;
         }
-        const double dj_raw = __shfl_sync(full, acc, j);
-        const bool bad = dj_raw <= 0.0;
+        __syncthreads();
+        const double dj_raw = *dsh;
         const double dj = guard_pivot(dj_raw);
-        if (on && lane > j) L[lane * ld + j] = acc / dj;
-        if (lane == 0) {
+        if (t > j && t < s) A[t * ld + j] = acc / dj;
+        if (t == j) {
             piv[j] = dj;
-            isc[j] = 1.0 / (bad ? pivot_diag : sqrt(dj));
+            isc[j] = 1.0 / (dj_raw <= 0.0 ? pivot_diag : sqrt(dj));
         }
-        __syncwarp();
+        __syncthreads();
     }
 
-    for (int m = 0; m < d; ++m) {
-        const int* ih = inds + (size_t)(m + 1) * ss;
-        // W = Lu^{-1} H': lane = column, forward substitution in axpy order
-        if (on) {
-            for (int k = 0; k < s; ++k) W[k * ld + lane] = (cv[k] * mv[ih[k * s + lane]]) * cv[lane];
-            for (int k = 0; k < s - 1; ++k) {
-                const double xk = W[k * ld + lane];
-                for (int i = k + 1; i < s; ++i) W[i * ld + lane] -= L[i * ld + k] * xk;
-            }
+    double* lo = Lu + (size_t)b * ss;
+    for (int e = t; e < ss; e += LARGE_THREADS) {
+        const int i = e / s, j = e - i * s;
+        lo[e] = j < i ? A[i * ld + j] : (i == j ? 1.0 : 0.0);
+    }
+    if (t < s) {
+        piv_out[(size_t)b * s + t] = piv[t];
+        c_out[(size_t)b * s + t] = cv[t];
+        isc_out[(size_t)b * s + t] = isc[t];
+    }
+}
+
+__global__ void __launch_bounds__(LARGE_THREADS)
+nd_ksolve_kernel(const double* __restrict__ ms, const int* __restrict__ inds,
+                 const double* __restrict__ Lu, const double* __restrict__ cvec,
+                 const double* __restrict__ isc_in, double* __restrict__ K,
+                 int d, int s, int z) {
+    extern __shared__ double smem[];
+    const int ld = s | 1;
+    double* L = smem;         // s x ld
+    double* W = L + s * ld;   // s x ld: H'_m, then Lu^{-1} H'_m, then W Lu^{-T}
+    double* cv = W + s * ld;
+    double* isc = cv + s;
+    const int b = blockIdx.x, m = blockIdx.y, t = threadIdx.x;
+    const int ss = s * s;
+    const double* mv = ms + (size_t)b * z;
+    const int* ih = inds + (size_t)(m + 1) * ss;
+    const double* lb = Lu + (size_t)b * ss;
+
+    if (t < s) {
+        cv[t] = cvec[(size_t)b * s + t];
+        isc[t] = isc_in[(size_t)b * s + t];
+    }
+    for (int e = t; e < ss; e += LARGE_THREADS) {
+        const int i = e / s;
+        L[i * ld + e - i * s] = lb[e];
+    }
+    __syncthreads();
+    for (int e = t; e < ss; e += LARGE_THREADS) {
+        const int i = e / s, j = e - i * s;
+        W[i * ld + j] = (cv[i] * mv[ih[e]]) * cv[j];
+    }
+    __syncthreads();
+    // W = Lu^{-1} H' (_nd_fsolve_kernel): thread = column, axpy order
+    if (t < s)
+        for (int k = 0; k < s - 1; ++k) {
+            const double xk = W[k * ld + t];
+            for (int i = k + 1; i < s; ++i) W[i * ld + t] -= L[i * ld + k] * xk;
         }
-        __syncwarp();
-        // Y = W Lu^{-T}: lane = row of W, solved in place
-        if (on) {
-            double* row = W + lane * ld;
-            for (int k = 0; k < s - 1; ++k) {
-                const double yk = row[k];
-                for (int j = k + 1; j < s; ++j) row[j] -= L[j * ld + k] * yk;
-            }
+    __syncthreads();
+    // Y = W Lu^{-T} (_nd_tsolve_kernel): thread = row of W, in place
+    if (t < s) {
+        double* row = W + t * ld;
+        for (int k = 0; k < s - 1; ++k) {
+            const double yk = row[k];
+            for (int j = k + 1; j < s; ++j) row[j] -= L[j * ld + k] * yk;
         }
-        __syncwarp();
-        // K_m[i, j] = 0.5 (Y_ij/scale_i/scale_j + Y_ji/scale_j/scale_i), lane = column
-        double* out = K + ((size_t)b * d + m) * ss;
-        if (on)
-            for (int i = 0; i < s; ++i) {
-                const double kij = (W[i * ld + lane] * isc[i]) * isc[lane];
-                const double kji = (W[lane * ld + i] * isc[lane]) * isc[i];
-                out[i * s + lane] = 0.5 * (kij + kji);
-            }
-        __syncwarp();
+    }
+    __syncthreads();
+    // K_m[i, j] = 0.5 (Y_ij/scale_i/scale_j + Y_ji/scale_j/scale_i), coalesced rows;
+    // the products and the sum are rounded apart (no FMA), so K_m is exactly
+    // symmetric, as the plain version's 0.5 (K + K^T) is
+    double* out = K + ((size_t)b * d + m) * ss;
+    for (int e = t; e < ss; e += LARGE_THREADS) {
+        const int i = e / s, j = e - i * s;
+        const double kij = __dmul_rn(W[i * ld + j] * isc[i], isc[j]);
+        const double kji = __dmul_rn(W[j * ld + i] * isc[j], isc[i]);
+        out[e] = 0.5 * __dadd_rn(kij, kji);
     }
 }
 
@@ -286,16 +339,31 @@ extern "C" int mfs_nd_eigh(const double* ms, const int* inds, double* vals, doub
     return (int)cudaGetLastError();
 }
 
-extern "C" int mfs_nd_k(const double* ms, const int* inds, double* K, int d, int s, int z,
-                        int B, void* stream) {
-    if (s < 1 || s > 32 || d < 1) return (int)cudaErrorInvalidValue;
+static size_t ldl_smem(int s) { return ((size_t)s * (s | 1) + 3 * (size_t)s + 1) * sizeof(double); }
+static size_t ksolve_smem(int s) { return (2 * (size_t)s * (s | 1) + 2 * (size_t)s) * sizeof(double); }
+
+extern "C" int mfs_nd_ldl(const double* ms, const int* inds, double* Lu, double* piv, double* c,
+                          double* isc, int s, int z, int B, void* stream) {
+    if (s < 1 || s > MAXS_LARGE) return (int)cudaErrorInvalidValue;
     if (B <= 0) return 0;
-    const int ld = s | 1;
-    const size_t smem = (size_t)K_WARPS * (2 * s * ld + 3 * s) * sizeof(double);
-    cudaError_t err = cudaFuncSetAttribute(nd_k_kernel,
+    const size_t smem = ldl_smem(s);
+    cudaError_t err = cudaFuncSetAttribute(nd_ldl_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const int blocks = (B + K_WARPS - 1) / K_WARPS;
-    nd_k_kernel<<<blocks, K_WARPS * 32, smem, (cudaStream_t)stream>>>(ms, inds, K, d, s, z, B);
+    nd_ldl_kernel<<<B, LARGE_THREADS, smem, (cudaStream_t)stream>>>(ms, inds, Lu, piv, c, isc, s, z);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int mfs_nd_ksolve(const double* ms, const int* inds, const double* Lu, const double* c,
+                             const double* isc, double* K, int d, int s, int z, int B,
+                             void* stream) {
+    if (s < 1 || s > MAXS_LARGE || d < 1 || d > 3) return (int)cudaErrorInvalidValue;
+    if (B <= 0) return 0;
+    const size_t smem = ksolve_smem(s);
+    cudaError_t err = cudaFuncSetAttribute(nd_ksolve_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    nd_ksolve_kernel<<<dim3(B, d), LARGE_THREADS, smem, (cudaStream_t)stream>>>(
+        ms, inds, Lu, c, isc, K, d, s, z);
     return (int)cudaGetLastError();
 }

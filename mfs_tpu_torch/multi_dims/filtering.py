@@ -9,8 +9,9 @@ negative log likelihood.
 Batch-first: carries may have leading trial axes (``cms0 (..., z)``,
 ``mean0 (..., d)``), ``ys`` is ``(T, ..., dy)``, and a Python loop over
 time replaces ``lax.scan``.  With ``eigh_impl="auto"`` every quadrature
-of a CUDA run goes through one fused-kernel launch (K2 for s <= 10, K3
-for 10 < s <= 32).
+of a CUDA run goes through the fused kernels: one K2 launch for s <= 10,
+one launch each of ``nd_ldl`` and ``nd_ksolve`` (then f64 ``eigh``) for
+10 < s <= 119.
 """
 from typing import Any, Callable, Optional, Tuple
 

@@ -13,17 +13,18 @@ eigenvector sets and static Cartesian-index gathers.
 
 Routes, chosen by ``eigh_impl``:
 
-- ``"fused"`` (the JAX package's ``"pallas"``): for s <= 10 and d <= 3
-  the kernel K2 gives the eigenpairs directly; otherwise, up to s = 32,
-  the kernel K3 builds the K_i and ``torch.linalg.eigh`` decomposes them in f64
+- ``"fused"`` (the JAX package's ``"pallas"``), d <= 3: for s <= 10 the
+  kernel K2 gives the eigenpairs directly; up to s = 119 the pair
+  ``nd_ldl`` + ``nd_ksolve`` (``nd_k_fused``, the counterpart of the JAX
+  package's K-builders, monolithic and staged) builds the K_i and
+  ``torch.linalg.eigh`` decomposes them in f64
   (``mfs_tpu_torch.ops.quadrature_nd_kernel``; plain versions on CPU
   tensors);
 - ``"refined"`` / ``"xla"``: f64 Cholesky (or ``ldl_chol`` with
   ``stable``), two triangular solves and ``torch.linalg.eigh``;
 - ``"auto"``: ``"fused"`` for a CUDA tensor within the kernels' own
-  limits (s <= 32, d <= 3), else ``"refined"``.  No threshold of the JAX
-  package's TPU dispatch is carried over.  In 2D this sends N <= 7
-  (s <= 28) to the kernels; the next 2D order has s = 36.
+  limits, else ``"refined"`` (``mfs_tpu_torch.ops.dispatch``).  In 2D
+  this sends N <= 14 (s <= 105) to the kernels.
 
 Each K_i has structurally repeated eigenvalues (each coordinate value
 appears for several basis polynomials).  Within an exactly degenerate
@@ -40,10 +41,9 @@ import torch
 
 from mfs_tpu_torch.config import DTYPE
 from mfs_tpu_torch.ops.eigh import eigh_batched, eigh_refined, eigh_xla
+from mfs_tpu_torch.ops.dispatch import fused_nd_kernel, resolve_impl_nd
 from mfs_tpu_torch.ops.quadrature_nd_kernel import (
-    MAX_D_EIGH,
     MAX_D_K,
-    MAX_S_EIGH,
     MAX_S_K,
     nd_eigh_fused,
     nd_k_fused,
@@ -75,15 +75,6 @@ def nd_cartesian_prod(x: Array, inds: np.ndarray = None) -> Array:
         inds = _cartesian_indices(d, n)
     idx = torch.as_tensor(inds, device=x.device)
     return torch.stack([x[i, idx[:, i]] for i in range(d)], dim=-1)
-
-
-def resolve_impl_nd(ms: Array, d: int, s: int, requested: str) -> str:
-    """``"auto"`` -> ``"fused"`` for CUDA tensors the kernels take
-    (s <= MAX_S_K, d <= MAX_D_K), else ``"refined"``; other names pass
-    through."""
-    if requested != "auto":
-        return requested
-    return "fused" if ms.is_cuda and s <= MAX_S_K and d <= MAX_D_K else "refined"
 
 
 def _cholesky_or_nan(G: Array) -> Array:
@@ -123,19 +114,20 @@ def moment_quadrature_nd(
     """
     inds = np.asarray(torch.as_tensor(inds).cpu(), dtype=np.int64)
     d, s = inds.shape[0] - 1, inds.shape[1]
-    eigh_impl = resolve_impl_nd(ms, d, s, eigh_impl)
+    eigh_impl = resolve_impl_nd(s, ms[..., 0].numel(), eigh_impl, d, device=ms.device)
 
     if eigh_impl == "fused":
-        if s <= MAX_S_EIGH and d <= MAX_D_EIGH:
+        kernel = fused_nd_kernel(s, d)
+        if kernel == "nd_eigh":
             vals, vecs = nd_eigh_fused(ms, inds)
             if sort_nodes:
                 vals, order = torch.sort(vals, dim=-1)
                 vecs = torch.gather(vecs, -1, order[..., None, :].expand(vecs.shape))
-        elif s <= MAX_S_K:
+        elif kernel == "nd_k":
             vals, vecs = eigh_refined(nd_k_fused(ms, inds), sort=sort_nodes)
         else:
-            raise ValueError(f"no fused ND quadrature for s = {s} (> {MAX_S_K}) yet: "
-                             "use eigh_impl='refined'")
+            raise ValueError(f"no fused ND quadrature for d = {d}, s = {s} (the kernels take "
+                             f"d <= {MAX_D_K}, s <= {MAX_S_K}): use eigh_impl='refined'")
     else:
         idx = torch.as_tensor(inds, device=ms.device)
         G = ms[..., idx[0]]

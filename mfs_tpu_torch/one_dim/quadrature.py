@@ -20,7 +20,8 @@ import torch
 
 from mfs_tpu_torch.config import DTYPE, default_device
 from mfs_tpu_torch.ops.eigh import eigh_batched, eigh_refined, eigh_xla
-from mfs_tpu_torch.ops.quadrature_kernel import MAX_N, moment_quadrature_fused
+from mfs_tpu_torch.ops.dispatch import resolve_impl_1d
+from mfs_tpu_torch.ops.quadrature_kernel import moment_quadrature_fused
 from mfs_tpu_torch.typings import Array, FloatScalar
 from mfs_tpu_torch.utils.linalg import ldl_chol
 
@@ -44,14 +45,6 @@ def _cholesky_or_nan(G: Array) -> Array:
     # lets the trial diverge (the rescue tiers pick it up).
     R, info = torch.linalg.cholesky_ex(G)
     return torch.where((info != 0)[..., None, None], float("nan"), R)
-
-
-def resolve_impl_1d(ms: Array, requested: str) -> str:
-    """``"auto"`` → ``"fused"`` for CUDA tensors with n <= 32, else
-    ``"refined"``; any other name passes through."""
-    if requested != "auto":
-        return requested
-    return "fused" if ms.is_cuda and ms.shape[-1] // 2 <= MAX_N else "refined"
 
 
 def moment_quadrature(
@@ -78,6 +71,7 @@ def moment_quadrature(
     stable : bool
         LDL-based modified Cholesky (PD completion) instead of Cholesky.
     eigh_impl : {"auto", "fused", "refined", "xla", "jacobi"}
+        "auto" resolves by ``ops/dispatch.py::resolve_impl_1d``.
     quad_jitter : float
         Gram regularisation of the fused path (ignored by the f64 paths,
         whose ``stable=True`` completion plays the same role).
@@ -86,7 +80,7 @@ def moment_quadrature(
     -------
     weights : Array (..., n), nodes : Array (..., n)
     """
-    eigh_impl = resolve_impl_1d(ms, eigh_impl)
+    eigh_impl = resolve_impl_1d(ms.shape[-1] // 2, ms[..., 0].numel(), eigh_impl, device=ms.device)
     if eigh_impl == "fused":
         return moment_quadrature_fused(ms, mean, scale, jitter=quad_jitter)
 

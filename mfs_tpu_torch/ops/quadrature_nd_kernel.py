@@ -1,8 +1,8 @@
-"""ND moment-quadrature kernels K2 and K3 and their plain versions.
+"""ND moment-quadrature kernels and their plain versions.
 
-Counterpart of ``mfs_tpu/ops/pallas_quadrature_nd.py`` for its two
-single-program kernels.  Both start from a graded-lex moment vector
-``ms (..., z)`` and the index tables ``inds (d + 1, s, s)`` of
+Counterpart of ``mfs_tpu/ops/pallas_quadrature_nd.py``.  Every kernel
+starts from a graded-lex moment vector ``ms (..., z)`` and the index
+tables ``inds (d + 1, s, s)`` of
 ``gram_and_hankel_indices_graded_lexico``:
 
 - the equilibrated Gram G'_ij = c_i G_ij c_j, c_j = 1/sqrt(G_jj)
@@ -12,16 +12,23 @@ single-program kernels.  Both start from a graded-lex moment vector
 - the d multiplication operators K_m = R^{-1} H'_m R^{-T},
   R = Lu diag(scale), by two triangular solves, symmetrised.
 
-``nd_k_fused`` (K3, replaces ``_nd_k_kernel``) returns the K_m; the
-caller eigendecomposes them.  ``nd_eigh_fused`` (K2, replaces
-``_nd_kernel``) continues with cyclic Jacobi in f64, in the round-robin
-order of ``mfs_tpu/ops/eigh.py::_round_robin_schedule``, until the
-off-diagonal mass falls below ``(1e-14)^2`` of the total (capped at
-``MAX_SWEEPS``).  The TPU kernel's f32 sweeps and Newton–Schulz
+``nd_k_fused`` returns the K_m for s <= ``MAX_S_K``; the caller
+eigendecomposes them.  It runs two launches: ``nd_ldl_fused`` (replaces
+``_nd_ldl_kernel``, ``_nd_cvec_kernel`` and ``_nd_ldl_panel_kernel``)
+factorises G' once per trial, and ``nd_ksolve_fused`` (replaces
+``_nd_fsolve_kernel`` and ``_nd_tsolve_kernel``) runs the two unit
+solves and the scaling per (trial, dimension).  Together they replace
+``_nd_k_kernel`` (K3) as well, which computes the same K_m for s <= 28
+in one program; the TPU's five staged programs exist only to stay under
+its compiler's statement-count limit.
+``nd_eigh_fused`` (K2, replaces ``_nd_kernel``) continues with cyclic
+Jacobi in f64, in the round-robin order of
+``mfs_tpu/ops/eigh.py::_round_robin_schedule``, until the off-diagonal
+mass falls below ``(1e-14)^2`` of the total (capped at ``MAX_SWEEPS``).  The TPU kernel's f32 sweeps and Newton–Schulz
 re-orthonormalisation exist only because the TPU has no f64 ALU; they
 are not ported.  K2 keeps its JAX body's order of the solves (the
-division by ``scale[r]`` inside each recursion), K3 its own (two unit
-solves, then the ``1/scale`` scaling).
+division by ``scale[r]`` inside each recursion), ``nd_ksolve`` K3's (two
+unit solves, then the ``1/scale`` scaling).
 
 - On a CUDA tensor each wrapper launches its kernel in
   ``csrc/quadrature_nd.cu`` (built by ``nvcc`` at first use) or raises.
@@ -44,7 +51,9 @@ from mfs_tpu_torch.typings import Array
 
 MAX_S_EIGH = 10  # K2: one thread per (trial, dimension), matrices in registers/local memory
 MAX_D_EIGH = 3
-MAX_S_K = 32  # K3: one warp per trial, one lane per row or column
+# nd_ksolve holds Lu and W, 2 s (s | 1) doubles, in one CTA's shared
+# memory: s = 119 takes 228,480 of the 232,448 bytes Hopper allows.
+MAX_S_K = 119
 MAX_D_K = 3
 MAX_SWEEPS = 20
 JACOBI_TOL = 1e-14
@@ -52,7 +61,8 @@ _PIVOT_DIAG = 1e-8
 
 # Launches of each CUDA kernel (not of the plain versions) since import.
 EIGH_LAUNCHES = 0
-K_LAUNCHES = 0
+LDL_LAUNCHES = 0
+KSOLVE_LAUNCHES = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -117,52 +127,48 @@ def _lib():
     eigh = lib.mfs_nd_eigh
     eigh.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     eigh.restype = ctypes.c_int
-    kb = lib.mfs_nd_k
-    kb.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    kb.restype = ctypes.c_int
-    return eigh, kb
+    ldl = lib.mfs_nd_ldl
+    ldl.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    ldl.restype = ctypes.c_int
+    ksolve = lib.mfs_nd_ksolve
+    ksolve.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    ksolve.restype = ctypes.c_int
+    return eigh, ldl, ksolve
 
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-# ---------------------------------------------------------------------------
-# K3: the K-builder
-# ---------------------------------------------------------------------------
-
-
-def nd_k_fused(ms: Array, inds) -> Array:
-    """The d multiplication operators ``K (..., d, s, s)`` (symmetrised)
-    of ``ms (..., z)``: K3 on a CUDA tensor, its plain version on a CPU
-    tensor."""
-    global K_LAUNCHES
-    if torch.is_tensor(ms) and ms.device.type == "cpu":
-        return nd_k_fused_plain(ms, inds)
-    inds, d, s, z, batch_shape, B = _prepare(ms, inds, MAX_S_K, MAX_D_K)
-    if ms.device.type != "cuda":
-        raise ValueError(f"no fused ND quadrature for device {ms.device}")
-    ms2 = ms.reshape(B, z).contiguous()
-    K = torch.empty((B, d, s, s), dtype=DTYPE, device=ms.device)
-    _, fn = _lib()
-    with torch.cuda.device(ms.device):
-        err = fn(ms2.data_ptr(), _device_inds(inds, ms.device).data_ptr(), K.data_ptr(),
-                 d, s, z, B, _stream(ms.device))
+def _launch(name: str, fn, device, *args) -> None:
+    with torch.cuda.device(device):
+        err = fn(*args, _stream(device))
     if err != 0:
-        raise RuntimeError(f"nd_k launch failed: CUDA error {err}")
-    K_LAUNCHES += 1
-    return K.reshape(batch_shape + (d, s, s))
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+# The K-builder: plain-version helpers
+# ---------------------------------------------------------------------------
+
+
+def _equilibration(ms2: Array, inds: np.ndarray) -> Array:
+    """c (B, s): c_j = 1/sqrt(G_jj), G_jj <= 1e-30 -> 1."""
+    diag = np.diagonal(inds[0]).copy()
+    gjj = ms2[:, torch.as_tensor(diag, device=ms2.device)]
+    return 1.0 / torch.sqrt(torch.where(gjj <= 1e-30, 1.0, gjj))
+
+
+def _scaled(c: Array, X: Array) -> Array:
+    """(c_i X_ij) c_j for X (B, s, s) or (B, d, s, s), c (B, s)."""
+    c = c.reshape(c.shape[:1] + (1,) * (X.ndim - 3) + c.shape[1:])
+    return (c[..., :, None] * X) * c[..., None, :]
 
 
 def _equilibrated(ms2: Array, inds: np.ndarray):
     """c (B, s) and the equilibrated G' (B, s, s), H' (B, d, s, s)."""
     idx = torch.as_tensor(inds, device=ms2.device)
-    G = ms2[:, idx[0]]
-    gjj = torch.diagonal(G, dim1=-2, dim2=-1)
-    c = 1.0 / torch.sqrt(torch.where(gjj <= 1e-30, 1.0, gjj))
-    Gp = (c[:, :, None] * G) * c[:, None, :]
-    Hp = (c[:, None, :, None] * ms2[:, idx[1:]]) * c[:, None, None, :]
-    return c, Gp, Hp
+    c = _equilibration(ms2, inds)
+    return c, _scaled(c, ms2[:, idx[0]]), _scaled(c, ms2[:, idx[1:]])
 
 
 def _ldl_plain(Gp: Array):
@@ -198,16 +204,104 @@ def _unit_forward(Lu: Array, rhs: Array) -> Array:
 
 
 def nd_k_fused_plain(ms: Array, inds) -> Array:
-    """K3's arithmetic in plain PyTorch f64 on any device."""
+    """``nd_k_fused``'s arithmetic in plain PyTorch f64 on any device: the
+    plain versions of ``nd_ldl`` and ``nd_ksolve`` chained."""
+    Lu, _, c, isc = nd_ldl_plain(ms, inds)
+    return nd_ksolve_plain(ms, inds, Lu, c, isc)
+
+
+# ---------------------------------------------------------------------------
+# The K-builder's kernels: nd_ldl and nd_ksolve
+# ---------------------------------------------------------------------------
+
+
+def nd_ldl_fused(ms: Array, inds) -> Tuple[Array, Array, Array, Array]:
+    """The equilibrated true-pivot LDL^T of each trial's Gram:
+    ``(Lu (..., s, s), piv, c, inv_scale (..., s))``: unit-lower factor,
+    guarded pivots, equilibration vector and 1/scale of R = Lu diag(scale).
+    ``nd_ldl_kernel`` on a CUDA tensor, its plain version on a CPU tensor."""
+    global LDL_LAUNCHES
+    if torch.is_tensor(ms) and ms.device.type == "cpu":
+        return nd_ldl_plain(ms, inds)
     inds, d, s, z, batch_shape, B = _prepare(ms, inds, MAX_S_K, MAX_D_K)
-    c, Gp, Hp = _equilibrated(ms.reshape(B, z), inds)
-    Lu, _, scale = _ldl_plain(Gp)
-    isc = 1.0 / scale
+    if ms.device.type != "cuda":
+        raise ValueError(f"no fused ND quadrature for device {ms.device}")
+    ms2 = ms.reshape(B, z).contiguous()
+    Lu = torch.empty((B, s, s), dtype=DTYPE, device=ms.device)
+    piv, c, isc = torch.empty((3, B, s), dtype=DTYPE, device=ms.device)
+    _launch("nd_ldl", _lib()[1], ms.device, ms2.data_ptr(),
+            _device_inds(inds, ms.device).data_ptr(), Lu.data_ptr(), piv.data_ptr(),
+            c.data_ptr(), isc.data_ptr(), s, z, B)
+    LDL_LAUNCHES += 1
+    return (Lu.reshape(batch_shape + (s, s)),) + tuple(
+        v.reshape(batch_shape + (s,)) for v in (piv, c, isc))
+
+
+def nd_ksolve_fused(ms: Array, inds, Lu: Array, cvec: Array, inv_scale: Array) -> Array:
+    """K (..., d, s, s), symmetrised, from ``nd_ldl_fused``'s factor:
+    ``nd_ksolve_kernel`` on a CUDA tensor, its plain version on a CPU
+    tensor."""
+    global KSOLVE_LAUNCHES
+    if torch.is_tensor(ms) and ms.device.type == "cpu":
+        return nd_ksolve_plain(ms, inds, Lu, cvec, inv_scale)
+    inds, d, s, z, batch_shape, B = _prepare(ms, inds, MAX_S_K, MAX_D_K)
+    if ms.device.type != "cuda":
+        raise ValueError(f"no fused ND quadrature for device {ms.device}")
+    Lu, cvec, inv_scale = _factor_args(ms, Lu, cvec, inv_scale, B, s)
+    ms2 = ms.reshape(B, z).contiguous()
+    K = torch.empty((B, d, s, s), dtype=DTYPE, device=ms.device)
+    _launch("nd_ksolve", _lib()[2], ms.device, ms2.data_ptr(),
+            _device_inds(inds, ms.device).data_ptr(), Lu.data_ptr(), cvec.data_ptr(),
+            inv_scale.data_ptr(), K.data_ptr(), d, s, z, B)
+    KSOLVE_LAUNCHES += 1
+    return K.reshape(batch_shape + (d, s, s))
+
+
+def nd_k_fused(ms: Array, inds) -> Array:
+    """The d multiplication operators ``K (..., d, s, s)`` (symmetrised)
+    of ``ms (..., z)`` for s <= ``MAX_S_K``: ``nd_ldl_fused`` then
+    ``nd_ksolve_fused``, two launches on a CUDA tensor, their plain
+    versions on a CPU tensor."""
+    Lu, _, c, isc = nd_ldl_fused(ms, inds)
+    return nd_ksolve_fused(ms, inds, Lu, c, isc)
+
+
+def _factor_args(ms: Array, Lu: Array, cvec: Array, inv_scale: Array, B: int, s: int):
+    """The factor's tensors as contiguous (B, s, s), (B, s), (B, s) f64
+    on ``ms``'s device, or raise."""
+    out = []
+    for name, v, shape in (("Lu", Lu, (s, s)), ("cvec", cvec, (s,)),
+                           ("inv_scale", inv_scale, (s,))):
+        if not torch.is_tensor(v) or v.dtype != DTYPE or v.device != ms.device:
+            raise TypeError(f"{name} must be a float64 tensor on {ms.device}")
+        if v.numel() != B * int(np.prod(shape)) or tuple(v.shape[-len(shape):]) != shape:
+            raise ValueError(f"{name} has shape {tuple(v.shape)}, expected (..., "
+                             + ", ".join(map(str, shape)) + f") for {B} trials")
+        out.append(v.reshape((B,) + shape).contiguous())
+    return out
+
+
+def nd_ldl_plain(ms: Array, inds) -> Tuple[Array, Array, Array, Array]:
+    """``nd_ldl``'s arithmetic in plain PyTorch f64 on any device."""
+    inds, d, s, z, batch_shape, B = _prepare(ms, inds, MAX_S_K, MAX_D_K)
+    ms2 = ms.reshape(B, z)
+    c = _equilibration(ms2, inds)
+    Lu, piv, scale = _ldl_plain(_scaled(c, ms2[:, torch.as_tensor(inds[0], device=ms.device)]))
+    return (Lu.reshape(batch_shape + (s, s)),) + tuple(
+        v.reshape(batch_shape + (s,)) for v in (piv, c, 1.0 / scale))
+
+
+def nd_ksolve_plain(ms: Array, inds, Lu: Array, cvec: Array, inv_scale: Array) -> Array:
+    """``nd_ksolve``'s arithmetic in plain PyTorch f64 on any device:
+    W = Lu^{-1} H', Y = W Lu^{-T}, K_ij = (Y_ij / scale_i) / scale_j,
+    symmetrised."""
+    inds, d, s, z, batch_shape, B = _prepare(ms, inds, MAX_S_K, MAX_D_K)
+    Lu, c, isc = _factor_args(ms, Lu, cvec, inv_scale, B, s)
+    Hp = _scaled(c, ms.reshape(B, z)[:, torch.as_tensor(inds[1:], device=ms.device)])
     W = _unit_forward(Lu, Hp)  # Lu^{-1} H'
     Y = _unit_forward(Lu, W.mT).mT  # W Lu^{-T}
     K = (Y * isc[:, None, :, None]) * isc[:, None, None, :]
-    K = 0.5 * (K + K.mT)
-    return K.reshape(batch_shape + (d, s, s))
+    return (0.5 * (K + K.mT)).reshape(batch_shape + (d, s, s))
 
 
 # ---------------------------------------------------------------------------
@@ -229,12 +323,9 @@ def nd_eigh_fused(ms: Array, inds) -> Tuple[Array, Array]:
     ms2 = ms.reshape(B, z).contiguous()
     vals = torch.empty((B, d, s), dtype=DTYPE, device=ms.device)
     vecs = torch.empty((B, d, s, s), dtype=DTYPE, device=ms.device)
-    fn, _ = _lib()
-    with torch.cuda.device(ms.device):
-        err = fn(ms2.data_ptr(), _device_inds(inds, ms.device).data_ptr(), vals.data_ptr(),
-                 vecs.data_ptr(), d, s, z, B, _stream(ms.device))
-    if err != 0:
-        raise RuntimeError(f"nd_eigh launch failed: CUDA error {err}")
+    _launch("nd_eigh", _lib()[0], ms.device, ms2.data_ptr(),
+            _device_inds(inds, ms.device).data_ptr(), vals.data_ptr(), vecs.data_ptr(),
+            d, s, z, B)
     EIGH_LAUNCHES += 1
     return vals.reshape(batch_shape + (d, s)), vecs.reshape(batch_shape + (d, s, s))
 
@@ -297,7 +388,7 @@ def jacobi_plain(A: Array):
 
 
 def nd_eigh_operators_plain(ms: Array, inds) -> Array:
-    """The K_m that K2 decomposes, ``(..., d, s, s)``: K3's function
+    """The K_m that K2 decomposes, ``(..., d, s, s)``: ``nd_k_fused``'s function
     computed in K2's order of the solves (plain PyTorch f64)."""
     inds, d, s, z, batch_shape, B = _prepare(ms, inds, MAX_S_EIGH, MAX_D_EIGH)
     _, Gp, Hp = _equilibrated(ms.reshape(B, z), inds)

@@ -126,7 +126,7 @@ def test_default_device_is_cuda(cuda):
 
 
 # ---------------------------------------------------------------------------
-# ND kernels K2 (fused eigenpairs) and K3 (K-builder)
+# ND kernels: K2 (fused eigenpairs) and the K-builder (nd_ldl + nd_ksolve)
 # ---------------------------------------------------------------------------
 
 from mfs_tpu_torch.models.multi_dims import prey_predator  # noqa: E402
@@ -145,22 +145,27 @@ def _nd_moments(N, d, B, seed, device):
     mean = torch.as_tensor(0.3 * rng.randn(B, d), device=device)
     a = torch.as_tensor(rng.randn(B, d, d), device=device)
     cov = a @ a.mT * 0.1 + 0.5 * torch.eye(d, dtype=torch.float64, device=device)
-    return raw_moments_mvn_kan_all(mean, cov, mis), nd_mi.gram_and_hankel_indices_graded_lexico(N, d)
+    # 64 trials at a time: Kan's sum for one trial of 2D order 15 takes ~30 MB
+    ms = torch.cat([raw_moments_mvn_kan_all(mean[i:i + 64], cov[i:i + 64], mis)
+                    for i in range(0, B, 64)])
+    return ms, nd_mi.gram_and_hankel_indices_graded_lexico(N, d)
 
 
 @pytest.mark.parametrize("N, d", [(5, 2), (6, 2), (7, 2), (3, 2)])
 def test_k3_matches_plain_version(cuda, N, d):
-    """K3 vs its plain version on the card, ragged B = 1021, one trial
-    NaN: K atol 1e-11 (measured 2.9e-12 at s = 28; FMA contraction), the
-    NaN trial NaN."""
+    """K3's function at its sizes (s = 15, 21, 28 and 6): ``nd_k_fused``
+    (one launch each of nd_ldl and nd_ksolve) vs its plain version on the
+    card, ragged B = 1021, one trial NaN: K atol 1e-11 (FMA contraction),
+    the NaN trial NaN."""
     ms, inds = _nd_moments(N, d, 1021, N, cuda)
     ms[7] = float("nan")
-    before = qnd.K_LAUNCHES
+    before = _launches()
     K = qnd.nd_k_fused(ms, inds)
     torch.cuda.synchronize()
     Kp = qnd.nd_k_fused_plain(ms, inds)
     ok = torch.arange(1021, device=cuda) != 7
-    assert qnd.K_LAUNCHES == before + 1
+    ran = {k: v - before[k] for k, v in _launches().items()}
+    assert ran == {"EIGH_LAUNCHES": 0, "LDL_LAUNCHES": 1, "KSOLVE_LAUNCHES": 1}
     assert (K - Kp)[ok].abs().max().item() < 1e-11
     assert bool(torch.isnan(K[7]).any())
 
@@ -189,7 +194,7 @@ def test_k2_matches_plain_version(cuda, N, d):
 
 def test_nd_kernels_raise_instead_of_falling_back(cuda):
     ms, inds = _nd_moments(3, 2, 4, 0, cuda)
-    before = (qnd.EIGH_LAUNCHES, qnd.K_LAUNCHES)
+    before = _launches()
     with pytest.raises(NotImplementedError):
         qnd.nd_eigh_fused(ms.clone().requires_grad_(True), inds)
     with pytest.raises(NotImplementedError):
@@ -198,28 +203,40 @@ def test_nd_kernels_raise_instead_of_falling_back(cuda):
         qnd.nd_k_fused(ms.float(), inds)
     with pytest.raises(ValueError):
         qnd.nd_eigh_fused(*_nd_moments(5, 2, 4, 0, cuda))
-    assert (qnd.EIGH_LAUNCHES, qnd.K_LAUNCHES) == before
+    assert _launches() == before
 
 
-@pytest.mark.parametrize("N, kernel", [(3, "EIGH_LAUNCHES"), (5, "K_LAUNCHES")])
-def test_auto_routes_cuda_tensors_to_the_kernels(cuda, N, kernel):
-    """"auto" on a CUDA tensor launches K2 at s = 6 and K3 at s = 15, and
-    the rule reproduces the moments to 5e-12 relative (moments of order 9
-    reach ~200 here)."""
+@pytest.mark.parametrize("N, kernels", [(3, ("EIGH_LAUNCHES",)),
+                                        (5, ("LDL_LAUNCHES", "KSOLVE_LAUNCHES"))])
+def test_auto_routes_cuda_tensors_to_the_kernels(cuda, N, kernels):
+    """"auto" on a CUDA tensor launches K2 at s = 6 and nd_ldl + nd_ksolve
+    at s = 15, and the rule reproduces the moments to 5e-12 relative
+    (moments of order 9 reach ~200 here)."""
     ms, inds = _nd_moments(N, 2, 64, 1, cuda)
-    before = getattr(qnd, kernel)
+    before = _launches()
     w, x = moment_quadrature_nd(ms, inds, eigh_impl="auto")
-    assert getattr(qnd, kernel) == before + 1
+    ran = {k: v - before[k] for k, v in _launches().items()}
+    assert ran == {k: 1 if k in kernels else 0 for k in _COUNTERS}
     mis = nd_mi.generate_graded_lexico_multi_indices(2, 2 * N - 1)
     got = torch.einsum("bmz,bm->bz", monomials_nd(x, mis), w)
     assert ((got - ms).abs() / ms.abs().clamp_min(1.0)).max().item() < 5e-12
 
 
-@pytest.mark.parametrize("N", [3, 5])
-def test_nd_filter_on_card_matches_cpu_plain_path(cuda, N):
+_COUNTERS = ("EIGH_LAUNCHES", "LDL_LAUNCHES", "KSOLVE_LAUNCHES")
+
+
+def _launches():
+    return {name: getattr(qnd, name) for name in _COUNTERS}
+
+
+@pytest.mark.parametrize("N, kernels", [(3, ("EIGH_LAUNCHES",)),
+                                        (5, ("LDL_LAUNCHES", "KSOLVE_LAUNCHES")),
+                                        (8, ("LDL_LAUNCHES", "KSOLVE_LAUNCHES"))])
+def test_nd_filter_on_card_matches_cpu_plain_path(cuda, N, kernels):
     """Prey–predator central filter, poly TME-2, B = 8, T = 20, through
-    K2 (N=3) or K3 + cuSOLVER eigh (N=5) on the card vs the same filter on
-    the CPU (plain versions): nell rtol 1e-10, two launches a step."""
+    K2 (N=3) or nd_ldl + nd_ksolve + cuSOLVER eigh (N=5, N=8) on the card vs the same filter on the CPU (plain versions):
+    nell rtol 1e-10, each of the route's kernels launched once a
+    quadrature (two a step) and no other."""
     B, T = 8, 20
     mis = nd_mi.generate_graded_lexico_multi_indices(2, 2 * N - 1)
     inds = nd_mi.gram_and_hankel_indices_graded_lexico(N, 2)
@@ -229,12 +246,122 @@ def test_nd_filter_on_card_matches_cpu_plain_path(cuda, N):
         model = prey_predator(mis, device=dev)
         poly = poly_tme_nd(model.drift, model.dispersion, model.dt, 2, mis, 2, 1, device=dev)
         ic = model.init_cond
-        before = qnd.EIGH_LAUNCHES + qnd.K_LAUNCHES
+        before = _launches()
         _, _, nell = moment_filter_nd_cms(
             poly.cms, poly.mean, model.measurement_cond_pdf, torch.as_tensor(ys, device=dev),
             (mis, inds), ic.cms.expand(B, -1), ic.mean.expand(B, 2),
             eigh_impl="auto" if dev == "cuda" else "fused",
             predict_fn=poly.predict_cms)
         nells[dev] = nell.cpu()
-        assert qnd.EIGH_LAUNCHES + qnd.K_LAUNCHES - before == (2 * T if dev == "cuda" else 0)
+        ran = {k: v - before[k] for k, v in _launches().items()}
+        assert ran == {k: 2 * T if dev == "cuda" and k in kernels else 0 for k in _COUNTERS}
     np.testing.assert_allclose(nells["cuda"].numpy(), nells["cpu"].numpy(), rtol=1e-10)
+
+
+# ---------------------------------------------------------------------------
+# The K-builder's kernels alone: nd_ldl and nd_ksolve
+# ---------------------------------------------------------------------------
+
+
+def _cond_tol(ms, inds, X):
+    """Per trial, the gap allowed between a kernel (FMA-contracted) and
+    its plain version: max|X| (1e-13 + 10 eps cond(G')), G' the
+    equilibrated Gram both factorise (``chip_smoke.py::conditioned_tol``).
+    It holds where 10 eps cond(G') <= 1e-2 (``chip_smoke.py``'s
+    ``ILL_CONDITIONED``), as for every trial of these Gaussian inputs."""
+    c, Gp, _ = qnd._equilibrated(ms, inds)
+    cond = torch.linalg.cond(Gp)
+    assert bool((10 * 2.2e-16 * cond <= 1e-2).all())
+    return X.flatten(1).abs().amax(-1) * (1e-13 + 10 * 2.2e-16 * cond)
+
+
+def _over_tol(ms, inds, X, Xp, ok):
+    gap = (X - Xp).flatten(1).abs().amax(-1)
+    return (gap[ok] / _cond_tol(ms[ok], inds, Xp[ok])).max().item()
+
+
+@pytest.mark.parametrize("N, d, B", [(8, 2, 1021), (9, 2, 1024), (11, 2, 1021), (11, 2, 1),
+                                     (14, 2, 1021), (5, 3, 515), (7, 3, 515)])
+def test_large_pair_matches_plain_version(cuda, N, d, B):
+    """nd_ldl and nd_ksolve vs their plain versions on the card at s = 36,
+    45, 66, 105 (d = 2) and 35, 84 (d = 3, 84 its largest order within
+    MAX_S_K), ragged B, one trial NaN (``_check_large_pair``)."""
+    ms, inds = _nd_moments(N, d, B, 100 + N, cuda)
+    _check_large_pair(cuda, ms, inds, d, B)
+
+
+def test_large_pair_at_its_shared_memory_limit(cuda):
+    """The pair at s = MAX_S_K = 119, the first 119 basis polynomials
+    of 2D order 15 (nd_ksolve's two tiles take 228,480 of the 232,448
+    bytes of shared memory the card grants a block), B = 257."""
+    ms, inds = _nd_moments(15, 2, 257, 115, cuda)
+    inds = np.ascontiguousarray(inds[:, :qnd.MAX_S_K, :qnd.MAX_S_K])
+    _check_large_pair(cuda, ms, inds, 2, 257)
+
+
+def _check_large_pair(cuda, ms, inds, d, B):
+    """Lu, 1/scale and K within the conditioned tolerance, c to 1e-15
+    relative (the same operations); nd_ksolve also on the plain factor,
+    so that each kernel is held alone; the NaN trial comes out NaN from
+    both."""
+    nan = B // 2 if B > 1 else -1
+    if B > 1:
+        ms[nan] = float("nan")
+    ok = torch.arange(B, device=cuda) != nan
+    before = _launches()
+    Lu, piv, c, isc = qnd.nd_ldl_fused(ms, inds)
+    K = qnd.nd_ksolve_fused(ms, inds, Lu, c, isc)
+    torch.cuda.synchronize()
+    Lup, pivp, cp, iscp = qnd.nd_ldl_plain(ms, inds)
+    Kp = qnd.nd_ksolve_plain(ms, inds, Lup, cp, iscp)
+    K_on_plain = qnd.nd_ksolve_fused(ms, inds, Lup, cp, iscp)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in _launches().items()}
+    assert ran == {"EIGH_LAUNCHES": 0, "LDL_LAUNCHES": 1, "KSOLVE_LAUNCHES": 2}
+    s = inds.shape[1]
+    assert Lu.shape == (B, s, s) and K.shape == (B, d, s, s)
+    assert ((c - cp)[ok].abs() / cp[ok].abs()).max().item() <= 1e-15
+    assert _over_tol(ms, inds, Lu, Lup, ok) <= 1.0
+    assert _over_tol(ms, inds, isc, iscp, ok) <= 1.0
+    assert _over_tol(ms, inds, piv, pivp, ok) <= 1.0
+    assert _over_tol(ms, inds, K, Kp, ok) <= 1.0
+    assert _over_tol(ms, inds, K_on_plain, Kp, ok) <= 1.0
+    assert torch.equal(K[ok], K[ok].mT)
+    if B > 1:
+        assert bool(torch.isnan(Lu[nan]).any() and torch.isnan(K[nan]).any())
+        assert bool(torch.isfinite(K[ok]).all())
+
+
+def test_large_pair_raises_instead_of_falling_back(cuda):
+    ms, inds = _nd_moments(8, 2, 4, 0, cuda)
+    before = _launches()
+    with pytest.raises(NotImplementedError):
+        qnd.nd_ldl_fused(ms.clone().requires_grad_(True), inds)
+    with pytest.raises(TypeError):
+        qnd.nd_ldl_fused(ms.float(), inds)
+    Lu, _, c, isc = qnd.nd_ldl_plain(ms, inds)
+    with pytest.raises(TypeError):  # the factor on another device
+        qnd.nd_ksolve_fused(ms, inds, Lu.cpu(), c, isc)
+    with pytest.raises(ValueError):  # s = 120 > MAX_S_K
+        qnd.nd_ldl_fused(torch.zeros(2, 465, dtype=torch.float64, device=cuda),
+                         nd_mi.gram_and_hankel_indices_graded_lexico(15, 2))
+    assert _launches() == before
+
+
+@pytest.mark.parametrize("N", [8, 11])
+def test_auto_routes_large_bases_to_the_pair(cuda, N):
+    """"auto" on a CUDA tensor at s = 36 and 66 launches nd_ldl and
+    nd_ksolve once each; the rule reproduces the moments no worse than
+    10x the f64 library route's rule + 1e-12 (relative to the moments'
+    own magnitude)."""
+    ms, inds = _nd_moments(N, 2, 64, 1, cuda)
+    mis = nd_mi.generate_graded_lexico_multi_indices(2, 2 * N - 1)
+    before = _launches()
+    gaps = {}
+    for impl in ("auto", "refined"):
+        w, x = moment_quadrature_nd(ms, inds, eigh_impl=impl)
+        got = torch.einsum("bmz,bm->bz", monomials_nd(x, mis), w)
+        gaps[impl] = ((got - ms).abs() / ms.abs().clamp_min(1.0)).max().item()
+    ran = {k: v - before[k] for k, v in _launches().items()}
+    assert ran == {"EIGH_LAUNCHES": 0, "LDL_LAUNCHES": 1, "KSOLVE_LAUNCHES": 1}
+    assert gaps["auto"] <= 10 * gaps["refined"] + 1e-12

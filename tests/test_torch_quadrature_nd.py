@@ -1,4 +1,6 @@
-"""Port vs JAX: the ND moment quadrature and the plain versions of K2 and K3.
+"""Port vs JAX: the ND moment quadrature and the plain versions of K2 and
+of the K-builder (``nd_k_fused``, the function of K3 and of the staged
+builder).
 
 On the CPU the fused wrappers run the plain PyTorch versions.  They are
 held against the JAX kernel bodies run eagerly, as the JAX package's own
@@ -33,8 +35,8 @@ from mfs_tpu_torch.multi_dims.quadrature import (  # noqa: E402
     moment_quadrature_nd,
     nd_cartesian_prod,
     nd_cartesian_prod_indices,
-    resolve_impl_nd,
 )
+from mfs_tpu_torch.ops.dispatch import resolve_impl_nd  # noqa: E402
 from mfs_tpu_torch.ops import quadrature_nd_kernel as qnd  # noqa: E402
 
 
@@ -129,7 +131,7 @@ def test_k3_plain_vs_jax_body(k3_case):
 
 
 def test_k3_route_moment_reproduction(k3_case):
-    """"fused" at s=15 runs K3 (plain) + f64 eigh: its weights reproduce
+    """"fused" at s=15 runs the K-builder (plain) + f64 eigh: its weights reproduce
     the moments as a measure, like JAX's f64 "refined" route (the JAX
     route's own gap, measured on the same inputs, bounds the port's up to
     a factor 10)."""
@@ -218,9 +220,8 @@ def test_wrappers_refuse_what_they_do_not_take():
 def test_auto_routing_on_cpu_and_jacobi_schedule(n):
     """"auto" sends CPU tensors to "refined"; K2's round-robin schedule
     is the JAX package's."""
-    t = torch.zeros(2, 21, dtype=torch.float64)
-    assert resolve_impl_nd(t, 2, n, "auto") == "refined"
-    assert resolve_impl_nd(t, 2, n, "fused") == "fused"
+    assert resolve_impl_nd(n, 2, "auto", 2, device=torch.device("cpu")) == "refined"
+    assert resolve_impl_nd(n, 2, "fused", 2, device=torch.device("cpu")) == "fused"
     want = tuple((tuple(int(v) for v in p), tuple(int(v) for v in q))
                  for p, q in j_round_robin_schedule(n))
     assert qnd.round_robin_schedule(n) == want
