@@ -143,7 +143,9 @@ def _ptxas(log):
 def phase_build():
     """Both kernel sources, one nvcc each, started together; a library
     already built from the same source is reused, and its ptxas report
-    is read from the log saved beside it."""
+    (each kernel's registers, stack, spills and static shared memory) is
+    read from the log saved beside it.  nd_ksolve's shared memory is
+    dynamic: ``nd_timing`` gives its layout and occupancy."""
     from mfs_tpu_torch.ops import build
     names = ("quadrature_1d", "quadrature_nd")
     t0 = time.perf_counter()
@@ -539,8 +541,8 @@ def ksolve_flops(s, d):
 def k2_flops(s, d, sweeps):
     """FP64 operations K2 does on one trial whose d Jacobi runs took
     ``sweeps`` (a list of d counts), from ``csrc/quadrature_nd.cu::
-    nd_eigh_kernel``.  The LDL is counted once per trial, though each of
-    the trial's d threads repeats it."""
+    nd_eigh_kernel``: the LDL once per trial, the solves, symmetrisation
+    and sweeps once per dimension."""
     equil = 2 * s
     ldl = sum((s - j) * (2 + 3 * j) + 2 + (s - 1 - j) for j in range(s))
     solves = s * sum(3 * r + 3 for r in range(s)) + s * sum(3 * r + 1 for r in range(s))
@@ -912,7 +914,8 @@ def pair_timing(N, ms, mis, inds, ms_per_step):
              f64_library_path_ms=library_path_ms,
              f64_library_path_note=lib_note + "; multi-call yardstick",
              bound_ms=rows[name]["bound_ms"], bound_by=rows[name]["bound_by"], fp64_ops=ops,
-             bytes=nbytes, max_abs_err=err)
+             bytes=nbytes, max_abs_err=err,
+             **({"layout": qnd.ksolve_layout(s, d)} if name == "nd_ksolve" else {}))
     eigh_ms = cuda_ms(lambda: torch.linalg.eigh(K), reps=2, warmup=1)
     pair_ms = rows["nd_ldl"]["ms"] + rows["nd_ksolve"]["ms"]
     emit("nd_timing_checks", N=N, **fields)
@@ -1030,10 +1033,14 @@ def phase_nd_profile(setups):
         for e in kernels:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        ours = {k: sum(v for name, v in by_name.items() if name.startswith(k + "("))
+                for k in ("nd_eigh_kernel", "nd_ldl_kernel", "nd_ksolve_kernel")}
         emit("nd_profile", N=N, steps=2, B=ND_B, wall_ms=wall * 1e3, device_kernels=len(kernels),
              device_busy_ms=busy_us / 1e3,
              device_idle_share=(1 - busy_us / 1e3 / (wall * 1e3)) if kernels else None,
-             top_kernels_ms=[[k[:60], v / 1e3] for k, v in top])
+             top_kernels_ms=[[k[:60], v / 1e3] for k, v in top],
+             port_kernels_share_of_busy={k: v / busy_us for k, v in ours.items() if v}
+             if busy_us else None)
 
 
 def main():

@@ -49,10 +49,10 @@ from mfs_tpu_torch.config import DTYPE
 from mfs_tpu_torch.ops import build
 from mfs_tpu_torch.typings import Array
 
-MAX_S_EIGH = 10  # K2: one thread per (trial, dimension), matrices in registers/local memory
+MAX_S_EIGH = 10  # K2: one warp per (trial, dimension), matrices in shared memory
 MAX_D_EIGH = 3
-# nd_ksolve holds Lu and W, 2 s (s | 1) doubles, in one CTA's shared
-# memory: s = 119 takes 228,480 of the 232,448 bytes Hopper allows.
+# nd_ksolve holds Lu and one W, s padded to 120, in one CTA's shared
+# memory: s = 119 takes 232,320 of the 232,448 bytes Hopper allows.
 MAX_S_K = 119
 MAX_D_K = 3
 MAX_SWEEPS = 20
@@ -133,7 +133,10 @@ def _lib():
     ksolve = lib.mfs_nd_ksolve
     ksolve.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     ksolve.restype = ctypes.c_int
-    return eigh, ldl, ksolve
+    layout = lib.mfs_nd_ksolve_layout
+    layout.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    layout.restype = ctypes.c_int
+    return eigh, ldl, ksolve, layout
 
 
 def _stream(device) -> int:
@@ -240,7 +243,15 @@ def nd_ldl_fused(ms: Array, inds) -> Tuple[Array, Array, Array, Array]:
 def nd_ksolve_fused(ms: Array, inds, Lu: Array, cvec: Array, inv_scale: Array) -> Array:
     """K (..., d, s, s), symmetrised, from ``nd_ldl_fused``'s factor:
     ``nd_ksolve_kernel`` on a CUDA tensor, its plain version on a CPU
-    tensor."""
+    tensor.
+
+    The kernel runs one CTA per trial: Lu is read once into shared
+    memory and serves every dimension.  Both solves are blocked
+    X <- Lu^{-1} X (the second on W^T), one warp per 8-column strip:
+    each 8-row panel's update from the rows above and the inverse of its
+    unit diagonal block (inverted once per trial) run on the FP64 tensor
+    cores (``mma.sync`` m8n8k4).  Its bound is bytes (moments and Lu read
+    once, K written once; ``chip_smoke.py::pair_timing``)."""
     global KSOLVE_LAUNCHES
     if torch.is_tensor(ms) and ms.device.type == "cpu":
         return nd_ksolve_plain(ms, inds, Lu, cvec, inv_scale)
@@ -255,6 +266,19 @@ def nd_ksolve_fused(ms: Array, inds, Lu: Array, cvec: Array, inv_scale: Array) -
             inv_scale.data_ptr(), K.data_ptr(), d, s, z, B)
     KSOLVE_LAUNCHES += 1
     return K.reshape(batch_shape + (d, s, s))
+
+
+def ksolve_layout(s: int, d: int, device="cuda") -> dict:
+    """``nd_ksolve_kernel``'s launch layout for (s, d) on a CUDA device:
+    s padded to ``sp``, row stride ``ld``, ``g`` dimensions side by side,
+    ``warps`` a CTA, its dynamic ``smem_bytes`` and the ``ctas_per_sm``
+    the card holds at once."""
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        err = _lib()[3](s, d, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"nd_ksolve layout query failed: CUDA error {err}")
+    return dict(zip(("sp", "ld", "g", "warps", "smem_bytes", "ctas_per_sm"), out))
 
 
 def nd_k_fused(ms: Array, inds) -> Array:
@@ -313,7 +337,14 @@ def nd_eigh_fused(ms: Array, inds) -> Tuple[Array, Array]:
     """Eigenpairs of the d multiplication operators of ``ms (..., z)``:
     ``vals (..., d, s)``, ``vecs (..., d, s, s)`` with eigenvectors in
     the columns, unsorted.  K2 on a CUDA tensor, its plain version on a
-    CPU tensor."""
+    CPU tensor.
+
+    The kernel runs one warp per (trial, dimension), two trials a CTA,
+    with every matrix in shared memory: each trial's LDL is factored
+    once, lanes over rows, then each warp runs its scaled solves (lanes
+    over columns) and its cyclic Jacobi, the rotations of a round
+    spread over the lanes.  Its bound is FP64 operations outside the
+    tensor cores (``chip_smoke.py::k2_flops``); it is latency-bound."""
     global EIGH_LAUNCHES
     if torch.is_tensor(ms) and ms.device.type == "cpu":
         return nd_eigh_fused_plain(ms, inds)

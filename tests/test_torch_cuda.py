@@ -292,8 +292,9 @@ def test_large_pair_matches_plain_version(cuda, N, d, B):
 
 def test_large_pair_at_its_shared_memory_limit(cuda):
     """The pair at s = MAX_S_K = 119, the first 119 basis polynomials
-    of 2D order 15 (nd_ksolve's two tiles take 228,480 of the 232,448
-    bytes of shared memory the card grants a block), B = 257."""
+    of 2D order 15 (nd_ksolve's Lu and W, padded to 120 rows at an
+    unpadded stride, take 232,320 of the 232,448 bytes of shared memory
+    the card grants a block), B = 257."""
     ms, inds = _nd_moments(15, 2, 257, 115, cuda)
     inds = np.ascontiguousarray(inds[:, :qnd.MAX_S_K, :qnd.MAX_S_K])
     _check_large_pair(cuda, ms, inds, 2, 257)
@@ -327,8 +328,9 @@ def _check_large_pair(cuda, ms, inds, d, B):
     assert _over_tol(ms, inds, K, Kp, ok) <= 1.0
     assert _over_tol(ms, inds, K_on_plain, Kp, ok) <= 1.0
     assert torch.equal(K[ok], K[ok].mT)
-    if B > 1:
-        assert bool(torch.isnan(Lu[nan]).any() and torch.isnan(K[nan]).any())
+    if B > 1:  # at s = 1 Lu is the constant [[1]]
+        assert bool(torch.isnan(piv[nan]).all() and torch.isnan(K[nan]).any())
+        assert s == 1 or bool(torch.isnan(Lu[nan]).any())
         assert bool(torch.isfinite(K[ok]).all())
 
 
@@ -365,3 +367,83 @@ def test_auto_routes_large_bases_to_the_pair(cuda, N):
     ran = {k: v - before[k] for k, v in _launches().items()}
     assert ran == {"EIGH_LAUNCHES": 0, "LDL_LAUNCHES": 1, "KSOLVE_LAUNCHES": 1}
     assert gaps["auto"] <= 10 * gaps["refined"] + 1e-12
+
+
+# ---------------------------------------------------------------------------
+# Launch geometry: K2 packs EIGH_TRIALS trials (one warp per dimension) into
+# a CTA; nd_ksolve runs one CTA per trial, one warp per 8-column strip of s
+# padded to a multiple of 8.  The batches below are not multiples of the
+# trials per CTA, and the bases reach each padding and shared-memory layout.
+# ---------------------------------------------------------------------------
+
+# The least order N whose basis (C(N - 1 + d, d) polynomials) holds s
+_ORDER_FOR = {2: {1: 1, 3: 2, 6: 3, 8: 4, 10: 4, 15: 5, 28: 7, 66: 11, 105: 14, 119: 15},
+              3: {1: 1, 3: 2, 6: 3, 8: 3, 10: 3, 15: 4, 28: 5, 66: 7, 105: 8, 119: 8}}
+
+
+def _moments_at(s, d, B, seed, device):
+    """Moments of B random Gaussians and the index tables of the first s
+    basis polynomials (the leading block of the Gram and of each Hankel)."""
+    ms, inds = _nd_moments(_ORDER_FOR[d][s], d, B, seed, device)
+    return ms, np.ascontiguousarray(inds[:, :s, :s])
+
+
+@pytest.mark.parametrize("s, d, B", [(s, d, 1021) for d in (2, 3) for s in (1, 3, 6, 10)]
+                         + [(6, 2, 1), (6, 2, 31), (10, 3, 1), (10, 3, 31)])
+def test_k2_launch_geometry(cuda, s, d, B):
+    """K2 vs its plain version (sorted eigenvalues 1e-12, residual 1e-12,
+    orthonormality 1e-13) at every s and d it takes and at ragged
+    batches; the NaN trial alone comes out NaN."""
+    ms, inds = _moments_at(s, d, B, 200 + s + d, cuda)
+    if B > 1:
+        ms[B // 2] = float("nan")
+    before = qnd.EIGH_LAUNCHES
+    vals, vecs = qnd.nd_eigh_fused(ms, inds)
+    torch.cuda.synchronize()
+    assert qnd.EIGH_LAUNCHES == before + 1
+    assert vals.shape == (B, d, s) and vecs.shape == (B, d, s, s)
+    vp, _ = qnd.nd_eigh_fused_plain(ms, inds)
+    K = qnd.nd_eigh_operators_plain(ms, inds)
+    ok = torch.arange(B, device=cuda) != (B // 2 if B > 1 else -1)
+    assert bool(torch.isfinite(vals[ok]).all() and torch.isfinite(vecs[ok]).all())
+    assert (vals.sort(-1)[0] - vp.sort(-1)[0])[ok].abs().max().item() < 1e-12
+    assert (K @ vecs - vecs * vals[..., None, :])[ok].abs().max().item() < 1e-12
+    eye = torch.eye(s, dtype=torch.float64, device=cuda)
+    assert (vecs.mT @ vecs - eye)[ok].abs().max().item() < 1e-13
+    if B > 1:
+        assert bool(torch.isnan(vals[B // 2]).all() and torch.isnan(vecs[B // 2]).all())
+
+
+@pytest.mark.parametrize("s, d, B", [(s, 2, 1021) for s in (1, 8, 15, 28, 66, 105)]
+                         + [(s, 3, 1021) for s in (1, 8, 15, 28, 66)]
+                         + [(119, 2, 257), (105, 3, 31), (119, 3, 31), (28, 2, 1), (28, 2, 31),
+                            (66, 2, 1), (66, 2, 31), (119, 2, 31)])
+def test_ksolve_launch_geometry(cuda, s, d, B):
+    """nd_ldl + nd_ksolve vs their plain versions at every padding of s
+    to the 8-row panels (s = 1, 8, 15, 28, 66, 105 and 119, the last in
+    the unpadded-stride layout), d = 2 and 3, ragged batches
+    (``_check_large_pair``: the conditioned tolerance, K exactly
+    symmetric, the NaN trial alone NaN).  At s = 119 in 2D the batch is
+    257, as in ``test_large_pair_at_its_shared_memory_limit``: among 1,021
+    of these Gaussians some Grams exceed the conditioning for which the
+    tolerance holds (10 eps cond(G') <= 1e-2), which ``_cond_tol``
+    requires of every trial."""
+    ms, inds = _moments_at(s, d, B, 300 + s + d, cuda)
+    _check_large_pair(cuda, ms, inds, d, B)
+
+
+@pytest.mark.parametrize("s", [1, 8, 28, 66, 112, 113, 119])
+def test_ksolve_layout(cuda, s):
+    """nd_ksolve's launch layout: s padded to the 8-row panels, the
+    bank-spreading stride sp + 4 where Lu and one W fit beside it (up to
+    sp = 112), else sp; as many dimensions side by side as leave room for
+    two CTAs on an SM; one warp per 8-column strip; the shared memory
+    within the 232,448 bytes a block may use, and the card holding at
+    least one CTA an SM (two where the shared memory allows)."""
+    for d in (2, 3):
+        lay = qnd.ksolve_layout(s, d)
+        sp = -(-s // 8) * 8
+        assert lay["sp"] == sp and lay["ld"] == (sp + 4 if sp <= 112 else sp)
+        assert 1 <= lay["g"] <= d and lay["warps"] == lay["g"] * sp // 8
+        assert lay["smem_bytes"] == ((1 + lay["g"]) * sp * lay["ld"] + 2 * sp) * 8 <= 232448
+        assert lay["ctas_per_sm"] >= (2 if lay["smem_bytes"] <= 232448 // 2 - 1024 else 1)
