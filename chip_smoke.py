@@ -27,6 +27,7 @@ import multiprocessing
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -228,11 +229,16 @@ def main_path_inputs(model, trans):
 
 
 def phase_timing(model, trans):
-    """K1 at the main path's shape (n = 15, B = 4096) against its plain
-    version and the f64 library pipeline, on the same inputs."""
-    from mfs_tpu_torch.ops import quadrature_kernel as qk
+    """K1 at the main path's shape (n = 15, B = 4096) and at a rescue
+    bucket's (B = 512, the first 512 of the same inputs) against its
+    plain version and the f64 library pipeline, on the same inputs.
+    Returns the rows by batch, the main path's first."""
     ms, mean = main_path_inputs(model, trans)
-    ms, mean = ms[:BATCH], mean[:BATCH]
+    return [k1_timing(ms[:B], mean[:B]) for B in (BATCH, TIER1_BUCKET)]
+
+
+def k1_timing(ms, mean):
+    from mfs_tpu_torch.ops import quadrature_kernel as qk
     B = ms.shape[0]
     scale = torch.ones_like(mean)
     w, x = qk.moment_quadrature_fused(ms, mean, scale)
@@ -266,7 +272,7 @@ def phase_timing(model, trans):
          f64_library_path_note="cholesky_ex + 2 solve_triangular + eigh, multi-call yardstick",
          bound_ms=bound, bound_by=bound_by, fp64_ops_per_trial=ops,
          fp64_divisions_per_trial=divs, bytes=nbytes, max_abs_err=err)
-    return dict(ms=ms_k, plain_ms=plain_k, bound_ms=bound, bound_by=bound_by,
+    return dict(B=B, ms=ms_k, plain_ms=plain_k, bound_ms=bound, bound_by=bound_by,
                 max_abs_err=err)
 
 
@@ -518,8 +524,8 @@ def ldl_flops(s):
     mul, div, sqrt one each; nothing depends on the data): c_j = 1/sqrt(G_jj),
     the lower triangle of G' (2 an entry), and for column j the products
     v_k = L_jk d_k (k < j), the pivot (2j + its guard and scale), and
-    each row below it (2j + the division).  nd_ldl forms L_ik d_k L_jk
-    in each row's sum, 3j a row: that extra work is the kernel's."""
+    each row below it (2j + the division).  nd_ldl does this work: it
+    forms each v once a column and updates each entry once from it."""
     equil = 2 * s + s * (s + 1)
     return equil + sum(j + 2 * j + 3 + (s - 1 - j) * (2 * j + 1) for j in range(s))
 
@@ -856,6 +862,8 @@ def phase_nd_main_path(smi, xss, yss):
              kernels=list(kernels), launches=counts, wall_s=wall, trials_per_s=ND_B / wall,
              ms_per_step=wall / T * 1e3, finite_frac=finite.double().mean().item(),
              mean_abs_err=err, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi)
+        if N == 7:
+            save_nd_fates(N, yss[:T], finite)
         expected = {k: 2 * T if k in kernels else 0 for k in counts}
         if counts != expected:
             raise AssertionError(f"N={N}: launches {counts}, expected {expected}")
@@ -865,6 +873,16 @@ def phase_nd_main_path(smi, xss, yss):
             raise AssertionError(f"N={N}: finite_frac {finite.double().mean().item()}, "
                                  f"mean abs error {err}")
     return setups, outs, launches
+
+
+def save_nd_fates(N, ys, finite):
+    """The pass's observations (T, B) and the trials the card kept, in
+    ``chiprun_out/nd_fates_N{N}.npz``: ``tests/nd_divergence_vs_jax.py
+    --card`` re-runs on the CPU the trials whose fate differs there."""
+    out = Path(__file__).resolve().parent / "chiprun_out" / f"nd_fates_N{N}.npz"
+    out.parent.mkdir(exist_ok=True)
+    np.savez_compressed(out, ys=ys[..., 0].cpu().numpy().astype(np.uint8),
+                        kept=finite.cpu().numpy(), N=N, substeps=ND_SUBSTEPS)
 
 
 def pair_timing(N, ms, mis, inds, ms_per_step):
@@ -1071,16 +1089,17 @@ def main():
         phase_nd_kernels_vs_plain()
         phase_nd_k_vs_plain()
         phase_nd_cpu_reference(outs, pending)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    # K1's times at the main path's batch, each batch's in "by_batch"
     k1 = {"name": "quadrature_1d", "route": "cuda",
           "source": "mfs_tpu_torch/csrc/quadrature_1d.cu",
           "replaces": "mfs_tpu/ops/pallas_quadrature.py:95", "launches": launches,
-          **{k: timing[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-          "library_ms": None}
+          **{k: timing[0][k] for k in keys}, "library_ms": None,
+          "by_batch": [{k: row[k] for k in ("B",) + keys} for row in timing]}
     # Each ND kernel's launches over every ND pass; its times and bound at
     # the largest basis it ran on (K2: N=3; the pair: N=11), each pass's
     # in "by_order".  The pair also replaces K3 (``_nd_k_kernel``), which
     # computes the same K_m in one program on the TPU.
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     nd = []
     for name, replaces, also in (
             ("K2", "mfs_tpu/ops/pallas_quadrature_nd.py:70", []),

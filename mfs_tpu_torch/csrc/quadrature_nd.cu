@@ -15,8 +15,8 @@
 // Per trial:
 //   1. equilibration c_j = 1/sqrt(G_jj) (G_jj <= 1e-30 -> 1) and
 //      G'_ij = (c_i G_ij) c_j;
-//   2. LDL^T of G' with true pivots, left-looking (entry (i, j) gets its
-//      updates L_ik (d_k L_jk) in the order k = 0, 1, ...); a pivot <= 0 gets
+//   2. LDL^T of G' with true pivots (entry (i, j) gets its updates
+//      L_ik (d_k L_jk) in the order k = 0, 1, ...); a pivot <= 0 gets
 //      the completion diagonal 1e-8*s in R = Lu diag(scale); a pivot below
 //      1e-35 in magnitude is replaced by a signed 1e-35 before dividing;
 //   3. K_m = R^{-1} H'_m R^{-T}, H'_m = (c_i H_ij) c_j, by two triangular
@@ -51,10 +51,30 @@
 //   chip_smoke.py::k2_flops), not bytes.  The kernel stays latency-bound:
 //   each round's angles are a chain of three f64 divisions and two square
 //   roots, each a multi-instruction sequence, and a round has three phases.
-// - nd_ldl + nd_ksolve, s <= 119, in two launches.  nd_ldl: one 128-thread
-//   CTA per trial, one thread per row of the left-looking LDL (two
-//   __syncthreads per column), G' and then L in shared memory; it writes
-//   Lu (B, s, s), the guarded pivots, c and 1/scale.  nd_ksolve: one CTA per
+// - nd_ldl + nd_ksolve, s <= 119, in two launches.  nd_ldl: one CTA of
+//   LDL_THREADS per trial; the z moments arrive by asynchronous copies and
+//   G' is gathered from them into a column-major packed lower triangle in
+//   shared memory, so that the entries still to be updated at column k,
+//   those of columns k + 1 .. s - 1, are one contiguous range.  The LDL is
+//   right-looking: per column k every thread forms the next pivot from its
+//   last update (the same bits everywhere), and one pass spread flat over
+//   the CTA's threads gives each entry of that range A_ij -= L_ik v_j,
+//   with v_j = d_k L_jk formed once; column k + 1's entries are divided by
+//   the pivot in the same pass.  No thread runs a serial dot product, each
+//   thread has several independent updates in flight, and one barrier a
+//   column is left.  It writes Lu (B, s, s) dense, the guarded pivots, c
+//   and 1/scale.  Bound: bytes (the Lu write; chip_smoke.py::ldl_flops at
+//   the tensor-core rate is below it); the rest is the chain of s
+//   barriers, each behind a division, and the updates' issue.  Shared
+//   memory (ldl_smem): s(s+1)/2 doubles and 16-bit entry codes, the z
+//   moments and five s-vectors: 26,774 bytes at s = 66 (z = 253), so 8
+//   CTAs an SM hold B = 1024 in one wave; 6,020 bytes at s = 28; 79,880
+//   bytes at s = 119 (z = 465).  At s = 28 (B ~ 906) registers cap an SM
+//   at 10 CTAs (48 a thread), so the batch is one wave of ~7 CTAs (28
+//   warps) an SM; the range of column k's pass falls below 128 entries
+//   from k = 12 on, so the 27 passes take 43 rounds of 128 threads for
+//   3,627 updates: 66% of the thread slots are busy (92% at s = 66).
+//   Several trials a CTA at s <= 32 would fill them.  nd_ksolve: one CTA per
 //   trial; Lu is read from HBM once, by asynchronous copies, into shared
 //   memory and serves the d dimensions, taken `g` at a time side by side
 //   (ksolve_config), each H_m gathered by asynchronous copies too.  Both
@@ -77,7 +97,7 @@
 #define EIGH_LD (MAXS_EIGH + 1)  // odd row stride of K2's matrices
 #define EIGH_MAT (MAXS_EIGH * EIGH_LD)
 #define EIGH_TRIALS 2            // trials per K2 CTA
-#define LARGE_THREADS 128
+#define LDL_THREADS 128
 #define MAXS_LARGE 119
 #define KSOLVE_MAX_WARPS 16      // nd_ksolve CTAs of <= 512 threads, two an SM: <= 64 registers
 #define SMEM_LIMIT 232448        // dynamic shared memory a block may opt in to
@@ -330,69 +350,9 @@ nd_eigh_kernel(const double* __restrict__ ms, const int* __restrict__ inds,
 }
 
 // ---------------------------------------------------------------------------
-// Large bases: nd_ldl (one CTA per trial, one thread per row, s <= 119 <
-// 128) and nd_ksolve (one CTA per trial, one warp per 8-column strip)
+// Large bases: nd_ldl (one CTA per trial, right-looking, updates over the
+// CTA) and nd_ksolve (one CTA per trial, one warp per 8-column strip)
 // ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(LARGE_THREADS)
-nd_ldl_kernel(const double* __restrict__ ms, const int* __restrict__ ig,
-              double* __restrict__ Lu, double* __restrict__ piv_out,
-              double* __restrict__ c_out, double* __restrict__ isc_out, int s, int z) {
-    extern __shared__ double smem[];
-    const int ld = s | 1;
-    double* A = smem;         // s x ld: G' on and below the diagonal, then L below it
-    double* cv = A + s * ld;  // c
-    double* piv = cv + s;     // guarded pivots
-    double* isc = piv + s;    // 1/scale
-    double* dsh = isc + s;    // the current column's raw pivot
-    const int b = blockIdx.x, t = threadIdx.x;
-    const double* mv = ms + (size_t)b * z;
-    const int ss = s * s;
-
-    // c_j = 1/sqrt(G_jj) (_nd_cvec_kernel), then G'_ij = (c_i G_ij) c_j, i >= j
-    if (t < s) {
-        double g = mv[ig[t * s + t]];
-        if (g <= 1e-30) g = 1.0;
-        cv[t] = 1.0 / sqrt(g);
-    }
-    __syncthreads();
-    for (int e = t; e < ss; e += LARGE_THREADS) {
-        const int i = e / s, j = e - i * s;
-        if (j <= i) A[i * ld + j] = (cv[i] * mv[ig[e]]) * cv[j];
-    }
-    __syncthreads();
-
-    // left-looking LDL^T (_nd_ldl_kernel / _nd_ldl_panel_kernel), thread = row
-    const double pivot_diag = 1e-8 * s;
-    for (int j = 0; j < s; ++j) {
-        double acc = 0.0;
-        if (t >= j && t < s) {
-            acc = A[t * ld + j];
-            for (int k = 0; k < j; ++k) acc -= A[t * ld + k] * (piv[k] * A[j * ld + k]);
-            if (t == j) *dsh = acc;
-        }
-        __syncthreads();
-        const double dj_raw = *dsh;
-        const double dj = guard_pivot(dj_raw);
-        if (t > j && t < s) A[t * ld + j] = acc / dj;
-        if (t == j) {
-            piv[j] = dj;
-            isc[j] = 1.0 / (dj_raw <= 0.0 ? pivot_diag : sqrt(dj));
-        }
-        __syncthreads();
-    }
-
-    double* lo = Lu + (size_t)b * ss;
-    for (int e = t; e < ss; e += LARGE_THREADS) {
-        const int i = e / s, j = e - i * s;
-        lo[e] = j < i ? A[i * ld + j] : (i == j ? 1.0 : 0.0);
-    }
-    if (t < s) {
-        piv_out[(size_t)b * s + t] = piv[t];
-        c_out[(size_t)b * s + t] = cv[t];
-        isc_out[(size_t)b * s + t] = isc[t];
-    }
-}
 
 // 8-byte asynchronous copy global -> shared; zero-fills when !valid.
 __device__ __forceinline__ void cp_async8(double* dst, const double* src, bool valid) {
@@ -403,6 +363,103 @@ __device__ __forceinline__ void cp_async8(double* dst, const double* src, bool v
 
 __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Column j of a column-major packed lower triangle of order s starts at
+// col_start(j, s); its entry (i, j), i >= j, sits at col_start(j, s) + i - j.
+__host__ __device__ __forceinline__ int col_start(int j, int s) { return j * s - j * (j - 1) / 2; }
+
+__global__ void __launch_bounds__(LDL_THREADS)
+nd_ldl_kernel(const double* __restrict__ ms, const int* __restrict__ ig,
+              double* __restrict__ Lu, double* __restrict__ piv_out,
+              double* __restrict__ c_out, double* __restrict__ isc_out, int s, int z) {
+    extern __shared__ double smem[];
+    const int ne = col_start(s, s);  // s (s + 1) / 2 entries
+    double* P = smem;          // G' on and below the diagonal, then L below it
+    double* mv = P + ne;       // the trial's z moments
+    double* cv = mv + z;       // c
+    double* va = cv + s;       // v_i = d_k L_ik of column k, k even
+    double* vb = va + s;       // ... k odd
+    double* piv = vb + s;      // guarded pivots
+    double* isc = piv + s;     // 1/scale
+    unsigned short* code = (unsigned short*)(isc + s);  // entry e's (i << 7) | j
+    constexpr int NW = LDL_THREADS / 32;
+    const int b = blockIdx.x, t = threadIdx.x, warp = t >> 5, lane = t & 31;
+    const double* mg = ms + (size_t)b * z;
+    for (int e = t; e < z; e += LDL_THREADS) cp_async8(mv + e, mg + e, true);
+    cp_async_wait_all();
+    __syncthreads();
+
+    // c_j = 1/sqrt(G_jj) (_nd_cvec_kernel), then G'_ij = (c_i G_ij) c_j, i >= j
+    if (t < s) {
+        double g = mv[ig[t * s + t]];
+        if (g <= 1e-30) g = 1.0;
+        cv[t] = 1.0 / sqrt(g);
+    }
+    __syncthreads();
+    for (int j = warp; j < s; j += NW)
+        for (int i = j + lane; i < s; i += 32) {
+            const int e = col_start(j, s) + i - j;
+            P[e] = (cv[i] * mv[ig[i * s + j]]) * cv[j];
+            code[e] = (unsigned short)(i << 7 | j);
+        }
+    __syncthreads();
+
+    // Right-looking true-pivot LDL^T (_nd_ldl_kernel / _nd_ldl_panel_kernel).
+    // Column 0's division, then per column k one pass over the entries of
+    // columns k + 1 .. s - 1, a contiguous range, spread flat over the CTA:
+    // every thread forms the next pivot (the same bits everywhere), each
+    // entry gets A_ij -= L_ik v_j, and column k + 1's entries are divided
+    // by the pivot and form v_i = d L_i,k+1 once.  One barrier a column.
+    const double pivot_diag = 1e-8 * s;
+    {
+        const double d_raw = P[0], d0 = guard_pivot(d_raw);
+        if (t == 0) {
+            piv[0] = d0;
+            isc[0] = 1.0 / (d_raw <= 0.0 ? pivot_diag : sqrt(d0));
+        }
+        for (int i = 1 + t; i < s; i += LDL_THREADS) {
+            const double l = P[i] / d0;
+            P[i] = l;
+            va[i] = d0 * l;
+        }
+    }
+    __syncthreads();
+    for (int k = 0; k + 1 < s; ++k) {
+        const double* vk = k & 1 ? vb : va;
+        double* vn = k & 1 ? va : vb;
+        const double* Lk = P + col_start(k, s) - k;  // Lk[i] = L_ik
+        const int o1 = col_start(k + 1, s);
+        const double d_raw = P[o1] - Lk[k + 1] * vk[k + 1];
+        const double dn = guard_pivot(d_raw);
+        if (t == 0) {
+            piv[k + 1] = dn;
+            isc[k + 1] = 1.0 / (d_raw <= 0.0 ? pivot_diag : sqrt(dn));
+        }
+#pragma unroll 4
+        for (int e = o1 + 1 + t; e < ne; e += LDL_THREADS) {
+            const int ij = code[e], i = ij >> 7, j = ij & 127;
+            const double a = P[e] - Lk[i] * vk[j];
+            if (j == k + 1) {
+                const double l = a / dn;
+                P[e] = l;
+                vn[i] = dn * l;
+            } else {
+                P[e] = a;
+            }
+        }
+        __syncthreads();
+    }
+
+    double* lo = Lu + (size_t)b * s * s;
+    for (int i = warp; i < s; i += NW)
+        for (int j = lane; j < s; j += 32)
+            lo[i * s + j] = j < i ? P[col_start(j, s) + i - j] : (i == j ? 1.0 : 0.0);
+    if (t < s) {
+        piv_out[(size_t)b * s + t] = piv[t];
+        c_out[(size_t)b * s + t] = cv[t];
+        isc_out[(size_t)b * s + t] = isc[t];
+    }
 }
 
 // D += A B for one 8x8 tile and one k-step of 4, on the FP64 tensor cores.
@@ -600,7 +657,12 @@ extern "C" int mfs_nd_eigh(const double* ms, const int* inds, double* vals, doub
     return (int)cudaGetLastError();
 }
 
-static size_t ldl_smem(int s) { return ((size_t)s * (s | 1) + 3 * (size_t)s + 1) * sizeof(double); }
+// nd_ldl's shared memory: the packed triangle, the moments, five
+// s-vectors and the triangle's 16-bit entry codes.
+static size_t ldl_smem(int s, int z) {
+    const size_t ne = (size_t)col_start(s, s);
+    return (ne + (size_t)z + 5 * (size_t)s) * sizeof(double) + ne * sizeof(unsigned short);
+}
 
 // nd_ksolve's layout for (s, d): s padded to sp (a multiple of 8); row
 // stride ld = sp + 4 (== 4 or 12 mod 16 doubles: the tensor-core operand
@@ -638,11 +700,12 @@ extern "C" int mfs_nd_ldl(const double* ms, const int* inds, double* Lu, double*
                           double* isc, int s, int z, int B, void* stream) {
     if (s < 1 || s > MAXS_LARGE) return (int)cudaErrorInvalidValue;
     if (B <= 0) return 0;
-    const size_t smem = ldl_smem(s);
+    const size_t smem = ldl_smem(s, z);
+    if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(nd_ldl_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    nd_ldl_kernel<<<B, LARGE_THREADS, smem, (cudaStream_t)stream>>>(ms, inds, Lu, piv, c, isc, s, z);
+    nd_ldl_kernel<<<B, LDL_THREADS, smem, (cudaStream_t)stream>>>(ms, inds, Lu, piv, c, isc, s, z);
     return (int)cudaGetLastError();
 }
 

@@ -13,11 +13,11 @@ eigenvector sets and static Cartesian-index gathers.
 
 Routes, chosen by ``eigh_impl``:
 
-- ``"fused"`` (the JAX package's ``"pallas"``), d <= 3: for s <= 10 the
-  kernel K2 gives the eigenpairs directly; up to s = 119 the pair
-  ``nd_ldl`` + ``nd_ksolve`` (``nd_k_fused``, the counterpart of the JAX
-  package's K-builders, monolithic and staged) builds the K_i and
-  ``torch.linalg.eigh`` decomposes them in f64
+- ``"fused"``, or its alias ``"pallas"`` (the JAX package's name),
+  d <= 3: for s <= 10 the kernel K2 gives the eigenpairs directly; up to
+  s = 119 the pair ``nd_ldl`` + ``nd_ksolve`` (``nd_k_fused``, the
+  counterpart of the JAX package's K-builders, monolithic and staged)
+  builds the K_i and ``torch.linalg.eigh`` decomposes them in f64
   (``mfs_tpu_torch.ops.quadrature_nd_kernel``; plain versions on CPU
   tensors);
 - ``"refined"`` / ``"xla"``: f64 Cholesky (or ``ldl_chol`` with
@@ -106,7 +106,7 @@ def moment_quadrature_nd(
     sort_nodes : sort each dimension's eigenvalues (the f64 routes
         always return them ascending).
     stable : LDL-based modified Cholesky on the f64 routes.
-    eigh_impl : {"auto", "fused", "refined", "xla", "jacobi"}
+    eigh_impl : {"auto", "fused", "pallas", "refined", "xla", "jacobi"}
 
     Returns
     -------

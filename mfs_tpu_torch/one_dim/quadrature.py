@@ -3,7 +3,7 @@
 Given the first 2n moments, builds the n-point Gauss rule that matches
 them.  Two routes, chosen by ``eigh_impl``:
 
-- ``"fused"`` (the counterpart of the JAX package's ``"pallas"``): the
+- ``"fused"``, or its alias ``"pallas"`` (the JAX package's name): the
   hand-written CUDA kernel on a GPU tensor, its plain version on a CPU
   tensor (``mfs_tpu_torch.ops.quadrature_kernel``);
 - ``"xla"`` / ``"refined"``: the f64 linear-algebra pipeline
@@ -70,8 +70,9 @@ def moment_quadrature(
         values, and the fused path (like the JAX kernel path) ignores it.
     stable : bool
         LDL-based modified Cholesky (PD completion) instead of Cholesky.
-    eigh_impl : {"auto", "fused", "refined", "xla", "jacobi"}
-        "auto" resolves by ``ops/dispatch.py::resolve_impl_1d``.
+    eigh_impl : {"auto", "fused", "pallas", "refined", "xla", "jacobi"}
+        "auto" resolves by ``ops/dispatch.py::resolve_impl_1d``;
+        "pallas" is "fused".
     quad_jitter : float
         Gram regularisation of the fused path (ignored by the f64 paths,
         whose ``stable=True`` completion plays the same role).

@@ -14,7 +14,8 @@ library route ("refined") everywhere else:
   order 7 (PERF.md §6), so the port keeps no kernel of its own for K3.
 
 The kernels run on CUDA tensors only, so a tensor on another device goes
-to "refined".  ``batch`` keeps the JAX package's signature; no batch
+to "refined".  The JAX package's name for the kernel route, "pallas", is
+an alias of "fused" here.  ``batch`` keeps the JAX package's signature; no batch
 threshold has been measured on the H100, so no route reads it.
 """
 from typing import Optional
@@ -25,15 +26,19 @@ from mfs_tpu_torch.ops import quadrature_kernel as qk
 from mfs_tpu_torch.ops import quadrature_nd_kernel as qnd
 
 
+_ALIASES = {"pallas": "fused"}
+
+
 def _on_cuda(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
 def resolve_impl_1d(n: int, batch: int, requested: str = "auto", *, device) -> str:
     """``eigh_impl`` for the 1D quadrature of order ``n`` over ``batch``
-    trials on ``device``: any name but "auto" passes through."""
+    trials on ``device``: "pallas" becomes "fused", and any other name but
+    "auto" passes through."""
     if requested != "auto":
-        return requested
+        return _ALIASES.get(requested, requested)
     return "fused" if _on_cuda(device) and n <= qk.MAX_N else "refined"
 
 
@@ -53,8 +58,8 @@ def fused_nd_kernel(s: int, d: int) -> Optional[str]:
 def resolve_impl_nd(s: int, batch: int, requested: str = "auto", d: int = 2, *,
                     device) -> str:
     """``eigh_impl`` for the ND quadrature with basis size ``s`` in ``d``
-    dimensions over ``batch`` trials on ``device``: any name but "auto"
-    passes through."""
+    dimensions over ``batch`` trials on ``device``: "pallas" becomes
+    "fused", and any other name but "auto" passes through."""
     if requested != "auto":
-        return requested
+        return _ALIASES.get(requested, requested)
     return "fused" if _on_cuda(device) and fused_nd_kernel(s, d) else "refined"

@@ -44,8 +44,10 @@ def eigh_xla(a: Array, sort: bool = False) -> Tuple[Array, Array]:
     return _eigh_f64(a)
 
 
-def eigh_refined(a: Array, sort: bool = False) -> Tuple[Array, Array]:
-    """Same as ``eigh_xla``: with native f64 there is nothing to refine."""
+def eigh_refined(a: Array, polish_sweeps: int = 0, sort: bool = False) -> Tuple[Array, Array]:
+    """Same as ``eigh_xla``: with native f64 there is nothing to refine,
+    so ``polish_sweeps`` (the JAX package's f64 polish of an f32 seed) is
+    accepted for signature parity and ignored."""
     return _eigh_f64(a)
 
 

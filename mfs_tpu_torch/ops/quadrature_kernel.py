@@ -8,8 +8,9 @@ van der Sluis equilibration, true-pivot LDL^T of the Hankel Gram with
 1e-8*n completion, Golub-Welsch coefficients, Sturm bisection plus
 clamped Newton for the nodes, Christoffel weights, affine node map.
 
-- On a CUDA tensor it launches ``csrc/quadrature_1d.cu`` (f64, one
-  thread per trial), built by ``nvcc`` at first use, or raises.
+- On a CUDA tensor it launches ``csrc/quadrature_1d.cu`` (f64, a team
+  of 16 lanes per trial up to n = 16, a warp above, one eigenvalue a
+  lane), built by ``nvcc`` at first use, or raises.
 - On a CPU tensor it runs ``moment_quadrature_fused_plain``, the same
   six stages in PyTorch f64, vectorised over the batch.
 

@@ -16,6 +16,16 @@ packages, like the tests; it is not collected by pytest (a few minutes
 of CPU at N=7).
 
     JAX_PLATFORMS=cpu python tests/nd_divergence_vs_jax.py --N 7 --trials 32 --pick 4
+
+With ``--card`` it takes a GPU run's pass instead: the observations and
+the trials the card kept, from the ``nd_fates_N7.npz`` that
+``chip_smoke.py`` writes under ``chiprun_out/``.  Step 1 then runs on every
+trial of that pass, and step 2 on the trials whose fate differs between
+the card's kernel route and the CPU plain route (and ``--pick`` lost and
+kept trials where both agree), to show whether JAX's f64 filter loses
+them too (about half an hour of CPU at N=7, B=1024):
+
+    JAX_PLATFORMS=cpu python tests/nd_divergence_vs_jax.py --card chiprun_out/nd_fates_N7.npz
 """
 import argparse
 import json
@@ -82,15 +92,25 @@ def main():
     ap.add_argument("--substeps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--threads", type=int, default=4)
+    ap.add_argument("--card", help="a chip_smoke.py nd_fates_N<N>.npz: its pass, not a "
+                                   "simulated one")
     args = ap.parse_args()
     torch.set_num_threads(args.threads)
+    card_kept = None
+    if args.card:
+        run = np.load(args.card)
+        card_kept = run["kept"]
+        args.N, args.substeps, args.seed = int(run["N"]), int(run["substeps"]), None
+        ys = run["ys"][:args.T, :, None].astype(np.float64)
+        args.T, args.trials = ys.shape[:2]
     N, B = args.N, args.trials
 
     mis = j_generate(2, 2 * N - 1)
     inds = np.asarray(j_gram_inds(N, 2))
     model = prey_predator(mis, device="cpu")
-    _, xss, yss = model.simulate(torch.Generator().manual_seed(args.seed), B, args.substeps)
-    ys = yss[:args.T].numpy()
+    if card_kept is None:
+        _, xss, yss = model.simulate(torch.Generator().manual_seed(args.seed), B, args.substeps)
+        ys = yss[:args.T].numpy()
     z = mis.shape[0]
     cms0 = np.broadcast_to(model.init_cond.cms.numpy(), (B, z)).copy()
     mean0 = np.broadcast_to(model.init_cond.mean.numpy(), (B, 2)).copy()
@@ -101,7 +121,13 @@ def main():
     f_first = first_nonfinite(f_means)
     lost = [b for b in range(B) if f_first[b] is not None or not np.isfinite(f_nell[b])]
     kept = [b for b in range(B) if b not in lost]
-    sel = lost[:args.pick] + kept[:args.pick]
+    lost_all = list(lost)
+    differ = []
+    if card_kept is not None:
+        differ = [b for b in range(B) if bool(card_kept[b]) == (b in lost)]
+        lost = [b for b in lost if b not in differ]
+        kept = [b for b in kept if b not in differ]
+    sel = differ + lost[:args.pick] + kept[:args.pick]
 
     t0 = time.perf_counter()
     r_means, r_nell = port_filter(N, mis, inds, cms0[sel], mean0[sel], ys[:, sel], "refined")
@@ -116,13 +142,19 @@ def main():
         same = (f_first[b] is None) == (j_first[i] is None)
         agree += same
         rel = abs(f_nell[b] - j_nell[i]) / abs(j_nell[i]) if np.isfinite(j_nell[i]) else None
-        print(json.dumps({"trial": b, "port_fused_lost_at": f_first[b],
+        card = {} if card_kept is None else {"card_kept": bool(card_kept[b]),
+                                                 "card_and_plain_differ": b in differ}
+        print(json.dumps({"trial": b, **card, "port_fused_lost_at": f_first[b],
                           "port_refined_lost_at": r_first[i], "jax_refined_lost_at": j_first[i],
                           "port_fused_nell": float(f_nell[b]), "jax_nell": float(j_nell[i]),
                           "nell_rel_gap": rel, "same_fate": bool(same)}), flush=True)
+    card = {} if card_kept is None else {
+        "card": args.card, "card_kept": int(card_kept.sum()), "card_and_plain_differ": differ,
+        "differ_lost_in_jax": [b for i, b in enumerate(sel) if b in differ and j_first[i] is not None]}
     print(json.dumps({"N": N, "T": args.T, "trials": B, "substeps": args.substeps,
-                      "seed": args.seed, "port_fused_finite_frac": len(kept) / B,
-                      "lost_steps": sorted(f_first[b] for b in lost if f_first[b] is not None),
+                      "seed": args.seed, **card,
+                      "port_fused_finite_frac": (B - len(lost_all)) / B,
+                      "lost_steps": sorted(f_first[b] for b in lost_all if f_first[b] is not None),
                       "checked": len(sel), "same_fate_in_jax": agree,
                       "seconds": {"port_fused": fused_s, "port_refined": refined_s,
                                   "jax_refined": jax_s}}), flush=True)

@@ -68,6 +68,53 @@ def test_kernel_matches_plain_version(cuda, N):
     assert qk.LAUNCHES == before + 2
 
 
+def _moment_residual(w, x, ms, mean, scale):
+    """Per trial: max over orders p of |sum_k w_k lam_k^p - m_p| relative
+    to sum_k w_k |lam_k|^p, lam = (x - mean) / scale (as in
+    ``chip_smoke.py``)."""
+    lam = (x - mean[:, None]) / scale[:, None]
+    powers = lam[..., None] ** torch.arange(ms.shape[-1], device=lam.device)
+    got = torch.einsum("bk,bkp->bp", w, powers)
+    denom = torch.einsum("bk,bkp->bp", w.abs(), powers.abs())
+    return ((got - ms).abs() / denom).amax(-1)
+
+
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 512, 4096])
+@pytest.mark.parametrize("n", [2, 15, 16, 17, 32])
+def test_k1_launch_geometry(cuda, n, B):
+    """K1 vs its plain version at the edges of its teams (n = 16 is the
+    largest order on 16-lane teams, two trials a warp; n = 17 the least
+    on whole warps) and of its 64-thread CTAs (four or two trials each),
+    with and without jitter, under ``chip_smoke.py``'s bounds: raw
+    mixture moments at n = 2 (nodes 5e-12, weights 5e-8); the filter's
+    central regime at n = 15-17 (nodes 1e-9, weights 1e-10) and at n = 32
+    (with jitter nodes 1e-6, weights 1e-7; without, the Gram is beyond
+    f64's reach and the kernel's rule reproduces the moments within 10x
+    the plain rule's residual + 1e-12).  Each call is one launch."""
+    ms = _mixture(n, B, n, cuda) if n <= 8 else _central_mixture(n, B, n + B, cuda)
+    mean = torch.linspace(-1.0, 1.0, B, dtype=torch.float64, device=cuda)
+    scale = torch.full_like(mean, 1.5)
+    before = qk.LAUNCHES
+    for jitter in (0.0, 1e-8):
+        w, x = qk.moment_quadrature_fused(ms, mean, scale, jitter)
+        torch.cuda.synchronize()
+        wp, xp = qk.moment_quadrature_fused_plain(ms, mean, scale, jitter)
+        assert w.shape == x.shape == (B, n)
+        assert bool(torch.isfinite(w).all() and torch.isfinite(x).all())
+        dx, dw = (x - xp).abs().max().item(), (w - wp).abs().max().item()
+        if n <= 8:
+            assert dx < 5e-12 and dw < 5e-8
+        elif n < 32:
+            assert dx < 1e-9 and dw < 1e-10
+        elif jitter:
+            assert dx < 1e-6 and dw < 1e-7
+        else:
+            res = _moment_residual(w, x, ms, mean, scale).max().item()
+            res_p = _moment_residual(wp, xp, ms, mean, scale).max().item()
+            assert res <= 10 * res_p + 1e-12
+    assert qk.LAUNCHES == before + 2
+
+
 def test_kernel_raises_instead_of_falling_back(cuda):
     before = qk.LAUNCHES
     with pytest.raises(ValueError):
@@ -377,7 +424,8 @@ def test_auto_routes_large_bases_to_the_pair(cuda, N):
 # ---------------------------------------------------------------------------
 
 # The least order N whose basis (C(N - 1 + d, d) polynomials) holds s
-_ORDER_FOR = {2: {1: 1, 3: 2, 6: 3, 8: 4, 10: 4, 15: 5, 28: 7, 66: 11, 105: 14, 119: 15},
+_ORDER_FOR = {2: {1: 1, 3: 2, 6: 3, 8: 4, 10: 4, 11: 5, 15: 5, 28: 7, 29: 8, 66: 11, 105: 14,
+                  119: 15},
               3: {1: 1, 3: 2, 6: 3, 8: 3, 10: 3, 15: 4, 28: 5, 66: 7, 105: 8, 119: 8}}
 
 
@@ -447,3 +495,37 @@ def test_ksolve_layout(cuda, s):
         assert 1 <= lay["g"] <= d and lay["warps"] == lay["g"] * sp // 8
         assert lay["smem_bytes"] == ((1 + lay["g"]) * sp * lay["ld"] + 2 * sp) * 8 <= 232448
         assert lay["ctas_per_sm"] >= (2 if lay["smem_bytes"] <= 232448 // 2 - 1024 else 1)
+
+
+@pytest.mark.parametrize("s, B", [(11, 1021), (28, 906), (29, 1021), (66, 1024), (66, 31),
+                                  (119, 257), (119, 1)])
+def test_ldl_launch_geometry(cuda, s, B):
+    """nd_ldl's four outputs vs ``nd_ldl_plain`` (one CTA per trial, each
+    column's trailing updates spread flat over its threads) at bases
+    below, at and above a warp's 32 lanes and up to MAX_S_K, ragged
+    batches: c
+    to 1e-15 relative (the same operations), Lu, the pivots and 1/scale
+    within the conditioned tolerance, Lu exactly unit lower triangular,
+    the NaN trial NaN.  At s = 119 the batch is 257, as in
+    ``test_large_pair_at_its_shared_memory_limit`` and on its inputs
+    (seed 115): other draws of 257 such Gaussians hold Grams beyond the
+    conditioning for which the tolerance holds, which ``_cond_tol``
+    requires of every trial."""
+    ms, inds = _moments_at(s, 2, B, 115 if s == 119 else 400 + s, cuda)
+    nan = B // 2 if B > 1 else -1
+    if B > 1:
+        ms[nan] = float("nan")
+    ok = torch.arange(B, device=cuda) != nan
+    before = qnd.LDL_LAUNCHES
+    Lu, piv, c, isc = qnd.nd_ldl_fused(ms, inds)
+    torch.cuda.synchronize()
+    assert qnd.LDL_LAUNCHES == before + 1
+    Lup, pivp, cp, iscp = qnd.nd_ldl_plain(ms, inds)
+    assert Lu.shape == (B, s, s) and piv.shape == c.shape == isc.shape == (B, s)
+    assert ((c - cp)[ok].abs() / cp[ok].abs()).max().item() <= 1e-15
+    for X, Xp in ((Lu, Lup), (piv, pivp), (isc, iscp)):
+        assert _over_tol(ms, inds, X, Xp, ok) <= 1.0
+    eye = torch.eye(s, dtype=torch.float64, device=cuda)
+    assert torch.equal(Lu[ok].triu(), eye.expand(int(ok.sum()), s, s))
+    if B > 1:
+        assert bool(torch.isnan(piv[nan]).all() and torch.isnan(Lu[nan]).any())

@@ -102,3 +102,75 @@ def test_ldl_and_ldl_chol(indefinite):
         ldl_chol(_t(mat), eps=1e-3).numpy(),
         np.asarray(j_ldl_chol(jnp.asarray(mat), eps=1e-3)), rtol=RTOL, atol=1e-14,
     )
+
+
+def test_eigh_refined_takes_polish_sweeps_as_jax_does():
+    """``eigh_refined(a, polish_sweeps=0, sort=False)``: the JAX signature,
+    so a positional second argument is ``polish_sweeps`` and not ``sort``;
+    with native f64 it is ignored.  Eigenvalues agree with JAX's polished
+    f64 ones to 1e-12, eigenvectors up to sign."""
+    import inspect
+
+    from mfs_tpu.ops.eigh import eigh_refined as j_eigh_refined
+    from mfs_tpu_torch.ops.eigh import eigh_refined
+
+    params = lambda f: [(p.name, p.default) for p in inspect.signature(f).parameters.values()]
+    assert params(eigh_refined) == params(j_eigh_refined)
+    a = np.random.RandomState(5).randn(3, 6, 6)
+    a = a + np.swapaxes(a, -1, -2)
+    jv, jV = j_eigh_refined(jnp.asarray(a), 2, True)
+    for vals, vecs in (eigh_refined(_t(a), 2), eigh_refined(_t(a), polish_sweeps=2, sort=True)):
+        np.testing.assert_allclose(vals.numpy(), np.asarray(jv), atol=1e-12)
+        overlap = np.abs(np.swapaxes(vecs.numpy(), -1, -2) @ np.asarray(jV))
+        np.testing.assert_allclose(overlap, np.broadcast_to(np.eye(6), overlap.shape), atol=1e-10)
+
+
+# Each subpackage's re-exports: the names the JAX subpackage exports that
+# the port has (``parallel`` re-exports the port's ``rescue_diverged``).
+_EXPORTS = {
+    "sde": ["generator", "generator_1d", "expectation", "expectation_1d", "mean_and_cov",
+            "mean_and_var_1d", "sde_cond_moments_tme", "sde_cond_moments_tme_normal",
+            "sde_cond_moments_euler"],
+    "models": ["benes_bernoulli", "lotka_volterra_3d", "prey_predator",
+               "satellite_orbital_stability"],
+    "ops": ["eigh_batched", "eigh_xla", "eigh_refined"],
+    "one_dim": ["hankel_indices", "moment_quadrature", "moment_filter_rms", "moment_filter_cms",
+                "moment_filter_scms"],
+    "utils": ["normal_raw_moments_all", "GaussianSum1D", "GaussianSumND", "ldl", "ldl_chol",
+              "simulate_sde"],
+    "parallel": ["rescue_diverged"],
+}
+
+
+@pytest.fixture(scope="module")
+def fresh_imports():
+    """Per subpackage, (returncode, stderr) of importing its re-exported
+    names as the first import of a fresh interpreter; the six run at once."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = {sub: subprocess.Popen(
+        [sys.executable, "-c", f"from mfs_tpu_torch.{sub} import {', '.join(names)}"],
+        cwd=root, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for sub, names in _EXPORTS.items()}
+    out = {}
+    for sub, p in procs.items():
+        err = p.communicate(timeout=120)[1]
+        out[sub] = (p.returncode, err)
+    return out
+
+
+@pytest.mark.parametrize("sub", sorted(_EXPORTS))
+def test_subpackage_reexports(sub, fresh_imports):
+    """Each name imports from the subpackage as the first import of a
+    fresh interpreter (so an import cycle would show), and, but for
+    ``parallel``'s, is a name the JAX subpackage exports too."""
+    import importlib
+
+    rc, err = fresh_imports[sub]
+    assert rc == 0, err
+    if sub != "parallel":
+        jax_pkg = importlib.import_module(f"mfs_tpu.{sub}")
+        assert all(hasattr(jax_pkg, n) for n in _EXPORTS[sub])

@@ -172,3 +172,54 @@ def test_default_device_is_cuda_and_raises_without_gpu():
         hankel_indices(3)
     assert config.default_device("cpu") == torch.device("cpu")
 
+
+
+def test_pallas_is_an_alias_of_fused():
+    """``eigh_impl="pallas"``, the JAX package's name for the kernel route
+    (``bench.py``, both JAX quadratures), takes the fused route in both
+    quadratures and through the filters: the same rule as "fused" bit
+    for bit; in 1D the JAX kernel body's rule (the bounds of
+    ``test_fused_plain_vs_jax_kernel_body``), in ND a rule that reproduces
+    the moments JAX computes (rtol 1e-9)."""
+    from mfs_tpu.multi_dims import multi_indices as j_mi
+    from mfs_tpu.multi_dims.moments import raw_moments_mvn_kan_all as j_kan
+    from mfs_tpu_torch.models.one_dim import benes_bernoulli
+    from mfs_tpu_torch.multi_dims.quadrature import moment_quadrature_nd
+    from mfs_tpu_torch.one_dim.filtering import moment_filter_cms
+    from mfs_tpu_torch.ops.dispatch import resolve_impl_1d, resolve_impl_nd
+    from mfs_tpu_torch.sde.transitions import sde_cond_moments_tme_normal
+
+    assert resolve_impl_1d(15, 4096, "pallas", device="cpu") == "fused"
+    assert resolve_impl_nd(28, 1024, "pallas", 2, device="cpu") == "fused"
+    N, B = 4, 5
+    ms = _mixture(N, B, seed=21)
+    rng = np.random.RandomState(21)
+    mean, scale = rng.randn(B), 0.5 + rng.rand(B)
+    w, x = moment_quadrature(_t(ms), _t(mean), _t(scale), eigh_impl="pallas")
+    wf, xf = moment_quadrature(_t(ms), _t(mean), _t(scale), eigh_impl="fused")
+    assert torch.equal(w, wf) and torch.equal(x, xf)
+    jw, jx = _jax_kernel_body(ms, mean, scale, 0.0)
+    np.testing.assert_allclose(x.numpy(), jx, atol=5e-12)
+    np.testing.assert_allclose(w.numpy(), jw, atol=5e-8)
+
+    mis = np.asarray(j_mi.generate_graded_lexico_multi_indices(2, 5))
+    inds = np.asarray(j_mi.gram_and_hankel_indices_graded_lexico(3, 2))
+    means = 0.3 * rng.randn(4, 2)
+    a = rng.randn(4, 2, 2)
+    covs = a @ np.swapaxes(a, -1, -2) * 0.1 + 0.5 * np.eye(2)
+    msd = np.asarray(j_kan(jnp.asarray(means), jnp.asarray(covs), jnp.asarray(mis)))
+    wn, xn = moment_quadrature_nd(_t(msd), inds, eigh_impl="pallas")
+    wnf, xnf = moment_quadrature_nd(_t(msd), inds, eigh_impl="fused")
+    assert torch.equal(wn, wnf) and torch.equal(xn, xnf)
+    mono = np.prod(xn.numpy()[..., None, :] ** mis[None, None], axis=-1)
+    got = np.einsum("bmz,bm->bz", mono, wn.numpy())
+    np.testing.assert_allclose(got, msd, rtol=1e-9, atol=1e-12)
+
+    model = benes_bernoulli(N=3, device="cpu")
+    trans = sde_cond_moments_tme_normal(model.drift, model.dispersion, model.dt, 2, 3)
+    ic = model.init_cond
+    ys = _t(np.random.RandomState(22).binomial(1, 0.5, (5, 3)))
+    nells = [moment_filter_cms(trans.cms, trans.mean, model.measurement_cond_pdf,
+                               ic.cms.expand(3, 6), ic.mean.expand(3), ys, eigh_impl=impl)[2]
+             for impl in ("pallas", "fused")]
+    assert torch.equal(nells[0], nells[1])
