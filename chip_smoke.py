@@ -12,7 +12,12 @@ against its plain PyTorch version:
   TME-2, B=1024, at N=7 (T=2000) and N=11 (T=50) through nd_ldl +
   nd_ksolve + cuSOLVER eigh and at N=3 (T=2000) through K2
   (``csrc/quadrature_nd.cu``), with 64, 64 and 16 trials re-run
-  on the CPU through the plain versions in worker processes.
+  on the CPU through the plain versions in worker processes;
+- MLE: the Well–Poisson maximum likelihood of
+  ``experiments/parameter_estimation.py`` (N=4, B=1000 trials, T=1000):
+  one batched gradient through K1's forward and its implicit-function
+  backward, and ``lbfgs_batched`` steps at full width, with 8 trials
+  re-run on the CPU through the plain version in a worker process.
 
     python3 chip_smoke.py
 
@@ -239,7 +244,7 @@ def phase_timing(model, trans):
 
 def k1_timing(ms, mean):
     from mfs_tpu_torch.ops import quadrature_kernel as qk
-    B = ms.shape[0]
+    B, n = ms.shape[0], ms.shape[-1] // 2
     scale = torch.ones_like(mean)
     w, x = qk.moment_quadrature_fused(ms, mean, scale)
     torch.cuda.synchronize()
@@ -253,7 +258,7 @@ def k1_timing(ms, mean):
     ms_k = cuda_ms(lambda: qk.moment_quadrature_fused(ms, mean, scale), reps=20)
     plain_k = cuda_ms(lambda: qk.moment_quadrature_fused_plain(ms, mean, scale), reps=3, warmup=1)
 
-    g = torch.as_tensor(np.add.outer(np.arange(N), np.arange(N)), device="cuda")
+    g = torch.as_tensor(np.add.outer(np.arange(n), np.arange(n)), device="cuda")
 
     def library_path():
         # cholesky + 2 triangular solves + eigh: a multi-call yardstick,
@@ -264,15 +269,15 @@ def k1_timing(ms, mean):
         return torch.linalg.eigh(0.5 * (K + K.mT))
     lib_k = cuda_ms(library_path, reps=3, warmup=1)
 
-    ops, divs = k1_flops(N)
-    nbytes = (4 * N + 2) * 8 * B
+    ops, divs = k1_flops(n)
+    nbytes = (4 * n + 2) * 8 * B
     bound = max(nbytes / HBM_BYTES_PER_S, ops * B / FP64_FLOP_PER_S) * 1e3
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S > ops * B / FP64_FLOP_PER_S else "operations"
-    emit("timing", n=N, B=B, kernel_ms=ms_k, plain_ms=plain_k, f64_library_path_ms=lib_k,
+    emit("timing", n=n, B=B, kernel_ms=ms_k, plain_ms=plain_k, f64_library_path_ms=lib_k,
          f64_library_path_note="cholesky_ex + 2 solve_triangular + eigh, multi-call yardstick",
          bound_ms=bound, bound_by=bound_by, fp64_ops_per_trial=ops,
          fp64_divisions_per_trial=divs, bytes=nbytes, max_abs_err=err)
-    return dict(B=B, ms=ms_k, plain_ms=plain_k, bound_ms=bound, bound_by=bound_by,
+    return dict(n=n, B=B, ms=ms_k, plain_ms=plain_k, bound_ms=bound, bound_by=bound_by,
                 max_abs_err=err)
 
 
@@ -1061,6 +1066,350 @@ def phase_nd_profile(setups):
              if busy_us else None)
 
 
+# ---------------------------------------------------------------------------
+# The MLE path: Well–Poisson maximum likelihood (experiments/parameter_estimation.py)
+# ---------------------------------------------------------------------------
+
+MLE_N = 4
+MLE_B = 1000
+MLE_T = 1000
+MLE_TRUE = 3.0  # the true (p1, p2) = (3, 3)
+MLE_SUBSTEPS = 1  # TME-3 sub-steps per observation in the simulation (JAX: 20)
+# 10 L-BFGS steps took 247.6 s (125 objective evaluations) in a run of
+# this script on an NVIDIA H100 80GB HBM3 at 700 W, past the ~240 s this
+# phase may take; its first 8 steps made 95 of those evaluations.
+MLE_STEPS = 8
+MLE_CPU_TRIALS = 8
+# The CPU re-run follows the card's first MLE_CPU_STEPS steps: one objective
+# evaluation of the plain route takes ~20 s at T=1000 on one CPU core.
+MLE_CPU_STEPS = 2
+MLE_GRAD_RTOL = 1e-6
+
+
+def mle_objective(ys, impl):
+    """Per-trial Well–Poisson nell, P (B, 2) -> (B,), for observations
+    ``ys (T, B)``: softplus parameters (p1, p2) = log(1 + e^P), Euler
+    transitions with Normal closure, the central-moment filter at N=4,
+    as ``experiments/parameter_estimation.py`` builds it."""
+    from mfs_tpu_torch.models.one_dim import well_poisson
+    from mfs_tpu_torch.one_dim.filtering import moment_filter_cms
+    from mfs_tpu_torch.sde.transitions import sde_cond_moments_euler
+    dt, _, _, ic, drift, disp, _, pmf, _ = well_poisson(MLE_TRUE, N=MLE_N, device=ys.device)
+    B = ys.shape[1]
+    softplus = lambda z: torch.logaddexp(torch.zeros((), dtype=z.dtype, device=z.device), z)
+
+    def nell(P):
+        p1, p2 = softplus(P[:, 0])[:, None], softplus(P[:, 1])[:, None]
+        trans = sde_cond_moments_euler(lambda u: drift(u, p1), disp, dt, MLE_N)
+        return moment_filter_cms(trans.cms, trans.mean, lambda y, u: pmf(y, u, p2),
+                                 ic.cms.expand(B, 2 * MLE_N), ic.mean.expand(B), ys,
+                                 eigh_impl=impl)[2]
+
+    return nell
+
+
+def mle_value_and_grad(nell, P):
+    """Per-trial values and gradients: the VJP of the block-separable
+    objective against ones, as ``lbfgs_batched`` takes it."""
+    P = P.detach().requires_grad_(True)
+    vals = nell(P)
+    (g,) = torch.autograd.grad(vals, P, torch.ones_like(vals))
+    return vals.detach(), g
+
+
+def mle_p0(B, device):
+    return torch.full((B, 2), 0.5, dtype=torch.float64, device=device)
+
+
+def phase_mle_data():
+    """B=1000 Well–Poisson paths at (p1, p2) = (3, 3) simulated on the card
+    (TME-3, ``MLE_SUBSTEPS`` sub-steps) from a seed, and their Poisson
+    counts by ``torch.poisson``: ys (T, B)."""
+    from mfs_tpu_torch.models.one_dim import well_poisson
+    t0 = time.perf_counter()
+    *_, emission, _, simulate = well_poisson(MLE_TRUE, N=MLE_N, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    xss = simulate(gen, MLE_B, MLE_SUBSTEPS)[:, :MLE_T]  # (B, T)
+    ys = torch.poisson(emission(xss, MLE_TRUE), generator=gen).T.contiguous()
+    torch.cuda.synchronize()
+    emit("mle_data", N=MLE_N, B=MLE_B, T=MLE_T, substeps=MLE_SUBSTEPS,
+         seconds=time.perf_counter() - t0, state_range=[xss.min().item(), xss.max().item()],
+         y_mean=ys.mean().item(), y_max=ys.max().item())
+    if ys.shape != (MLE_T, MLE_B) or not bool(torch.isfinite(xss).all()):
+        raise AssertionError("Well–Poisson data have the wrong shape or are not finite")
+    return ys
+
+
+def phase_mle_grad(ys, smi):
+    """One batched gradient of the per-trial nell at P = 0.5 through the
+    kernel route ("fused": K1 forward, the implicit-function backward) and
+    through "refined" (cuSOLVER eigh + its autograd), B=1000, T=1000.  K1
+    launches exactly 2T times on "fused" and never on "refined"; per trial
+    finite in both, the gradients agree to rtol 1e-6.  Returns the
+    kernel route's (values, gradients)."""
+    from mfs_tpu_torch.ops import quadrature_kernel as qk
+    out, fields = {}, {}
+    for impl in ("fused", "refined"):
+        nell = mle_objective(ys, impl)
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        qk.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals, g = mle_value_and_grad(nell, mle_p0(MLE_B, "cuda"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[impl] = (vals, g)
+        finite = torch.isfinite(vals) & torch.isfinite(g).all(-1)
+        fields[impl] = dict(wall_s=wall, grad_trials_per_s=MLE_B / wall, k1_launches=qk.LAUNCHES,
+                            finite_trials=int(finite.sum()),
+                            peak_mem_added_gb=(torch.cuda.max_memory_allocated() - mem0) / 1e9)
+    (vf, gf), (vr, gr) = out["fused"], out["refined"]
+    both = torch.isfinite(vf) & torch.isfinite(gf).all(-1) & torch.isfinite(vr) & \
+        torch.isfinite(gr).all(-1)
+    rel = ((gf - gr).norm(dim=-1) / gr.norm(dim=-1))[both]
+    nell_rel = ((vf - vr).abs() / vr.abs())[both]
+    emit("mle_grad", N=MLE_N, B=MLE_B, T=MLE_T, P=0.5, **fields, finite_in_both=int(both.sum()),
+         grad_max_rel_gap=rel.max().item(), grad_median_rel_gap=rel.median().item(),
+         nell_max_rel_gap=nell_rel.max().item(), card=smi)
+    if fields["fused"]["k1_launches"] != 2 * MLE_T or fields["refined"]["k1_launches"] != 0:
+        raise AssertionError(f"K1 launches {fields['fused']['k1_launches']} (fused), "
+                             f"{fields['refined']['k1_launches']} (refined); expected "
+                             f"{2 * MLE_T} and 0")
+    if not (both.sum() > 0.9 * MLE_B and rel.max().item() <= MLE_GRAD_RTOL):
+        raise AssertionError("the kernel route's gradient disagrees with the refined route's")
+    return vf, gf
+
+
+def phase_mle(ys, smi):
+    """``lbfgs_batched`` at full width (B=1000 trials, each its own (p1,
+    p2)), ``MLE_STEPS`` steps from P = 0.5, through the kernel route.
+    Objective evaluations are counted here; K1 launches exactly 2T times
+    per evaluation (the backward launches none), and no trial whose nell
+    stays finite sees it rise from one step to the next (Armijo).
+    Returns each step's parameters of the first ``MLE_CPU_TRIALS`` trials."""
+    from mfs_tpu_torch.estimation import lbfgs_batched
+    from mfs_tpu_torch.ops import quadrature_kernel as qk
+    nell = mle_objective(ys, "fused")
+    evals, first, per_step, trace_f, trace_p = [0], [], [], [], []
+
+    def objective(P):
+        evals[0] += 1
+        out = nell(P)
+        if not first:
+            first.append(out.detach().clone())
+        return out
+
+    def callback(P, f):
+        per_step.append(evals[0])
+        trace_f.append(f.clone())
+        trace_p.append(P[:MLE_CPU_TRIALS].clone())
+
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    qk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    P, info = lbfgs_batched(objective, mle_p0(MLE_B, "cuda"), max_steps=MLE_STEPS,
+                            chunk_steps=MLE_STEPS, callback=callback)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = qk.LAUNCHES
+    f = torch.stack(first + trace_f)  # (steps + 1, B)
+    kept = torch.isfinite(f[1:]) & torch.isfinite(f[:-1])
+    rises = (f[1:] > f[:-1]) & kept
+    finite = torch.isfinite(info["nell"]) & torch.isfinite(P).all(-1)
+    p_hat = torch.logaddexp(torch.zeros((), dtype=P.dtype, device=P.device), P)[finite]
+    steps = info["steps"]
+    evals_per_step = np.diff([1] + per_step).tolist()  # the first evaluation precedes step 1
+    emit("mle", N=MLE_N, B=MLE_B, T=MLE_T, max_steps=MLE_STEPS, wall_s=wall,
+         steps_wall_s=info["wall_s"], steps_total=int(steps.sum()),
+         step_trials_per_s=int(steps.sum()) / info["wall_s"], median_steps=int(steps.median()),
+         converged=int(info["converged"].sum()), divergent=int((~finite).sum()),
+         objective_evaluations=evals[0], evaluations_per_step=evals_per_step,
+         k1_launches=launches, k1_launches_expected=2 * MLE_T * evals[0],
+         nell_rises=int(rises.sum()), p1_mean=p_hat[:, 0].mean().item(),
+         p1_std=p_hat[:, 0].std().item(), p2_mean=p_hat[:, 1].mean().item(),
+         p2_std=p_hat[:, 1].std().item(),
+         peak_mem_added_gb=(torch.cuda.max_memory_allocated() - mem0) / 1e9, card=smi)
+    if launches != 2 * MLE_T * evals[0] or launches == 0:
+        raise AssertionError(f"K1 launched {launches} times over {evals[0]} evaluations")
+    if rises.any():
+        raise AssertionError(f"nell rose between steps in {int(rises.any(0).sum())} trials")
+    if P.shape != (MLE_B, 2) or steps.shape != (MLE_B,) or int(steps.max()) == 0:
+        raise AssertionError("lbfgs_batched's outputs have the wrong shape, or it took no step")
+    return trace_p, launches
+
+
+def phase_mle_profile(ys):
+    """Device busy share over one forward + backward of the kernel route's
+    objective over two filter steps at B=1000; the top device ops, K1's
+    time, and the backward's LU: the device time under its two aten calls
+    (``lu_factor_ex``, ``lu_solve``), and its getrf/getrs kernels by name."""
+    from torch.profiler import ProfilerActivity, profile
+    nell = mle_objective(ys[:2], "fused")
+    run = lambda: mle_value_and_grad(nell, mle_p0(MLE_B, "cuda"))
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    lu = {k: v for k, v in by_name.items() if "getr" in k}
+    # the LU's whole device time: every kernel the two aten calls launched
+    lu_us = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages()
+                if e.key in ("aten::linalg_lu_factor_ex", "aten::linalg_lu_solve"))
+    emit("mle_profile", steps=2, B=MLE_B, wall_ms=wall * 1e3, device_kernels=len(kernels),
+         device_busy_ms=busy_us / 1e3,
+         device_idle_share=(1 - busy_us / 1e3 / (wall * 1e3)) if kernels else None,
+         top_kernels_ms=[[k[:60], v / 1e3] for k, v in top],
+         k1_ms=sum(v for k, v in by_name.items() if "quadrature_1d_kernel" in k) / 1e3,
+         lu_ms=lu_us / 1e3, lu_share_of_busy=lu_us / busy_us if busy_us else None,
+         getr_kernels_ms=[[k[:60], v / 1e3] for k, v in lu.items()])
+
+
+def phase_mle_k1_timing(ys):
+    """K1 on the MLE path's own inputs (the filter state after 10 steps at
+    P = 0.5, n=4, B=1000): ``k1_timing``; and its gradient there, by CUDA
+    events: the Function's backward alone (20 calls on one graph), and
+    the backward's f64 LU (``lu_factor_ex`` + ``lu_solve`` of the (8 x 8)
+    systems), the library part of the gradient."""
+    from mfs_tpu_torch.ops import quadrature_kernel as qk
+    from mfs_tpu_torch.models.one_dim import well_poisson
+    from mfs_tpu_torch.one_dim.filtering import moment_filter_cms
+    from mfs_tpu_torch.sde.transitions import sde_cond_moments_euler
+    dt, _, _, ic, drift, disp, _, pmf, _ = well_poisson(MLE_TRUE, N=MLE_N, device="cuda")
+    p = float(np.logaddexp(0.0, 0.5))
+    trans = sde_cond_moments_euler(lambda u: drift(u, p), disp, dt, MLE_N)
+    cmss, means, _ = moment_filter_cms(trans.cms, trans.mean, lambda y, u: pmf(y, u, p),
+                                       ic.cms.expand(MLE_B, 2 * MLE_N), ic.mean.expand(MLE_B),
+                                       ys[:10], eigh_impl="fused")
+    ok = torch.isfinite(cmss[-1]).all(-1) & torch.isfinite(means[-1])
+    ms, mean = cmss[-1][ok].contiguous(), means[-1][ok].contiguous()
+    row = k1_timing(ms, mean)
+    msg, meang = ms.clone().requires_grad_(True), mean.clone().requires_grad_(True)
+    w, x = qk.moment_quadrature_fused(msg, meang, 1.0)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    gw, gx = (torch.randn(w.shape, generator=gen, dtype=w.dtype, device="cuda") for _ in range(2))
+    grad_ms = cuda_ms(lambda: torch.autograd.grad((w, x), (msg, meang), (gw, gx),
+                                                  retain_graph=True), reps=20)
+    A = qk._vdm_frame(w.detach(), x.detach() - mean[:, None], ms)[0]
+    b = torch.cat([gw, gx], dim=-1)[..., None]
+
+    def lu():
+        f, piv, _ = torch.linalg.lu_factor_ex(A)
+        return torch.linalg.lu_solve(f, piv, b, adjoint=True)
+    lu_ms = cuda_ms(lu, reps=20)
+    row.update(grad_ms=grad_ms, grad_lu_ms=lu_ms)
+    emit("mle_k1_timing", n=MLE_N, B=ms.shape[0], grad_ms=grad_ms, grad_lu_ms=lu_ms,
+         grad_note="the Function's backward alone; its lu_factor_ex + lu_solve (8 x 8, f64)")
+    return row
+
+
+def phase_k1_grad_vs_plain():
+    """K1's gradient on the card, at n=4 (raw mixture moments, m0 = 1.3)
+    and n=15 (the 1D main path's central regime), B=1000.
+
+    - The Jacobian of (w, x) in (ms, mean, scale), from one VJP per
+      output through the kernel route, against the same through the plain
+      route (the Function on CPU copies): max |dJ| / max |J| per trial.
+      Bound at n=4: 1e-6.  At n=15 the confluent Vandermonde system has
+      condition ~1e28 (JAX's note), so no bound is promised: reported.
+    - J d against central differences (step 1e-6) of the kernel primal
+      along a random d (dms = 0.1 |ms| randn): atol 1e-6 at n=4 (JAX's
+      bound for its JVP); reported at n=15."""
+    from mfs_tpu_torch.ops import quadrature_kernel as qk
+    rng = np.random.RandomState(4)
+    B = MLE_B
+    for n in (4, 15):
+        ms = mixture_moments(n, B, rng, "raw" if n == 4 else "filter", "cuda")
+        ms = ms * (1.3 if n == 4 else 1.0)
+        mean = torch.as_tensor(rng.randn(B) * 0.1, device="cuda")
+        scale = torch.as_tensor(1.0 + 0.2 * rng.rand(B), device="cuda")
+
+        def jacobian(device):
+            args = [a.to(device).clone().requires_grad_(True) for a in (ms, mean, scale)]
+            w, x = qk.moment_quadrature_fused(*args)
+            rows = []
+            for k in range(2 * n):
+                g = torch.zeros((B, 2 * n), dtype=torch.float64, device=device)
+                g[:, k] = 1.0
+                grads = torch.autograd.grad((w, x), args, (g[:, :n], g[:, n:]), retain_graph=True)
+                rows.append(torch.cat([grads[0], grads[1][:, None], grads[2][:, None]], -1))
+            return torch.stack(rows, 1).to("cuda")  # (B, 2n, 2n + 2)
+
+        before = qk.LAUNCHES
+        J = jacobian("cuda")
+        launched = qk.LAUNCHES - before
+        Jp = jacobian("cpu")
+        both = torch.isfinite(J).flatten(1).all(-1) & torch.isfinite(Jp).flatten(1).all(-1)
+        gap = ((J - Jp).flatten(1).abs().amax(-1) / Jp.flatten(1).abs().amax(-1))[both]
+        d = torch.cat([ms * 0.1 * torch.as_tensor(rng.randn(B, 2 * n), device="cuda"),
+                       torch.as_tensor(rng.randn(B, 2), device="cuda") * 0.1], -1)
+        eps = 1e-6
+        f = lambda s: torch.cat(qk.moment_quadrature_fused(ms + s * d[:, :2 * n],
+                                                           mean + s * d[:, 2 * n],
+                                                           scale + s * d[:, 2 * n + 1]), -1)
+        fd = (f(eps) - f(-eps)) / (2 * eps)
+        jd = torch.einsum("bki,bi->bk", J, d)
+        ok_fd = both & torch.isfinite(fd).all(-1)
+        fd_gap = (jd - fd)[ok_fd].abs().max().item()
+        bound_plain, bound_fd = (MLE_GRAD_RTOL, 1e-6) if n == 4 else (None, None)
+        emit("k1_grad_vs_plain", n=n, B=B, kernel_launches=launched,
+             finite_in_both=int(both.sum()), jacobian_max_rel_gap=gap.max().item(),
+             jacobian_median_rel_gap=gap.median().item(), jacobian_bound=bound_plain,
+             fd_max_abs_gap=fd_gap, fd_bound=bound_fd, max_abs_jacobian=J[both].abs().max().item())
+        if launched != 1:
+            raise AssertionError("the kernel route's gradient did not launch K1 once")
+        if n == 4 and not (both.sum() >= 0.99 * B and gap.max().item() <= bound_plain
+                           and fd_gap <= bound_fd):
+            raise AssertionError(f"K1's gradient disagrees at n={n}")
+
+
+def mle_cpu_rerun(ys, threads):
+    """The first ``MLE_CPU_TRIALS`` trials on CPU tensors (the plain K1
+    under the same Function): the gradient at P = 0.5 and
+    ``lbfgs_batched`` for ``MLE_CPU_STEPS`` steps; run in a worker.
+    Returns (gradients, parameters, steps, seconds)."""
+    from mfs_tpu_torch.estimation import lbfgs_batched
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    ys = torch.as_tensor(ys)
+    nell = mle_objective(ys, "fused")
+    _, g = mle_value_and_grad(nell, mle_p0(ys.shape[1], "cpu"))
+    P, info = lbfgs_batched(nell, mle_p0(ys.shape[1], "cpu"), max_steps=MLE_CPU_STEPS,
+                            chunk_steps=MLE_CPU_STEPS)
+    return g.numpy(), P.numpy(), info["steps"].numpy(), time.perf_counter() - t0
+
+
+def phase_mle_cpu_reference(grad, trace_p, pending):
+    """The CPU re-run against the card: gradients at P = 0.5 rtol 1e-6 per
+    trial finite in both (the kernel route against the plain route), and
+    the parameters after step ``MLE_CPU_STEPS`` (the card's from the same
+    steps of its full-width run: each trial's iteration is its own)."""
+    g_cpu, p_cpu, steps, cpu_s = pending.get()
+    g_card = grad[:MLE_CPU_TRIALS].cpu().numpy()
+    p_card = trace_p[MLE_CPU_STEPS - 1].cpu().numpy()
+    fin = np.isfinite(g_cpu).all(-1) & np.isfinite(g_card).all(-1)
+    g_rel = np.linalg.norm(g_cpu - g_card, axis=-1) / np.linalg.norm(g_cpu, axis=-1)
+    finp = np.isfinite(p_cpu).all(-1) & np.isfinite(p_card).all(-1)
+    p_rel = np.abs(p_cpu - p_card).max(-1) / np.abs(p_cpu).max(-1)
+    emit("mle_cpu_reference", trials=MLE_CPU_TRIALS, T=MLE_T, steps=MLE_CPU_STEPS,
+         cpu_steps=steps.tolist(), finite_in_both=int(fin.sum()),
+         grad_max_rel_gap=float(g_rel[fin].max()), params_finite_in_both=int(finp.sum()),
+         params_max_rel_gap=float(p_rel[finp].max()), cpu_seconds=cpu_s)
+    if not (fin.all() and g_rel.max() <= MLE_GRAD_RTOL and finp.all()
+            and p_rel.max() <= MLE_GRAD_RTOL):
+        raise AssertionError("the card's MLE disagrees with the CPU plain route")
+
+
 def main():
     smi = phase_device()
     from mfs_tpu_torch.models.one_dim import benes_bernoulli
@@ -1080,22 +1429,36 @@ def main():
     setups, outs, nd_launches = phase_nd_main_path(smi, xss, yss)
     nd_rows = phase_nd_timing(setups, outs)
     phase_nd_profile(setups)
-    # Then the checks, while the ND CPU reference runs in worker processes.
-    with multiprocessing.get_context("spawn").Pool(5) as pool:  # terminated on exit
+    mle_ys = phase_mle_data()
+    _, mle_grad = phase_mle_grad(mle_ys, smi)
+    trace_p, mle_launches = phase_mle(mle_ys, smi)
+    phase_mle_profile(mle_ys)
+    mle_row = phase_mle_k1_timing(mle_ys)
+    # Then the checks, while the CPU references run in worker processes.
+    with multiprocessing.get_context("spawn").Pool(6) as pool:  # terminated on exit
+        mle_pending = pool.apply_async(
+            mle_cpu_rerun, (mle_ys[:, :MLE_CPU_TRIALS].cpu().numpy(), 1))
         pending = start_nd_cpu_reference(pool, yss)
         phase_kernel_vs_plain()
+        phase_k1_grad_vs_plain()
         phase_rescue_tiers(model, trans, ys, tier0_out)
         phase_cpu_reference(model, trans, ys, tier0_out)
         phase_nd_kernels_vs_plain()
         phase_nd_k_vs_plain()
         phase_nd_cpu_reference(outs, pending)
+        phase_mle_cpu_reference(mle_grad, trace_p, mle_pending)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    # K1's times at the main path's batch, each batch's in "by_batch"
+    # K1's times at the main path's batch, each batch's in "by_batch": the
+    # main path (n=15, B=4096), a rescue bucket (B=512), and the MLE path
+    # (n=4, B=1000) with its launches (mle_grad's 2T + mle's) and the
+    # gradient's times
+    mle_row.update(launches=2 * MLE_T + mle_launches)
     k1 = {"name": "quadrature_1d", "route": "cuda",
           "source": "mfs_tpu_torch/csrc/quadrature_1d.cu",
           "replaces": "mfs_tpu/ops/pallas_quadrature.py:95", "launches": launches,
           **{k: timing[0][k] for k in keys}, "library_ms": None,
-          "by_batch": [{k: row[k] for k in ("B",) + keys} for row in timing]}
+          "by_batch": [{k: row[k] for k in ("n", "B") + keys} for row in timing]
+          + [{k: mle_row[k] for k in ("n", "B") + keys + ("launches", "grad_ms", "grad_lu_ms")}]}
     # Each ND kernel's launches over every ND pass; its times and bound at
     # the largest basis it ran on (K2: N=3; the pair: N=11), each pass's
     # in "by_order".  The pair also replaces K3 (``_nd_k_kernel``), which

@@ -1,4 +1,4 @@
-from mfs_tpu_torch.models.one_dim import benes_bernoulli
+from mfs_tpu_torch.models.one_dim import benes_bernoulli, well_poisson
 from mfs_tpu_torch.models.multi_dims import (
     lotka_volterra_3d,
     prey_predator,

@@ -84,3 +84,64 @@ def benes_bernoulli(N: int = 2, device=None) -> Model1D:
         measurement_cond_pdf=measurement_cond_pdf,
         simulate=simulate,
     )
+
+
+def well_poisson(true_p1: float, N: int = 2, device=None):
+    """Double-well SDE with softplus-Poisson emissions — the
+    parameter-estimation model (JAX: ``mfs_tpu/models/one_dim.py::well_poisson``).
+
+        dX = X (1 - p1 X^2) dt + dW,   Y_k ~ Poisson(log(1 + e^{p2 X_k})).
+
+    Returns the JAX tuple ``(dt, T, ts, init_cond, drift, dispersion,
+    emission, measurement_cond_pmf, simulate)``: the model pieces take
+    (p1, p2) as arguments, which may be tensors that broadcast against
+    the nodes (one parameter pair per trial), and ``simulate(generator,
+    nsamples, integration_steps)`` returns an ensemble ``(nsamples, T)``
+    at ``true_p1``, simulated by TME-3 sub-steps.
+    """
+    device = default_device(device)
+    dt = 1e-2
+    T = 1000
+    ts = torch.linspace(dt, dt * T, T, dtype=DTYPE, device=device)
+
+    init_cond = GaussianSum1D.new(
+        means=[-0.5, 0.5], variances=[0.05, 0.05], weights=[0.5, 0.5],
+        N=N, device=device,
+    )
+
+    def drift(x, p1):
+        return x * (1.0 - p1 * x**2)
+
+    def dispersion(x):
+        return torch.ones_like(x) if torch.is_tensor(x) else 1.0
+
+    def emission(x, p2):
+        # log(1 + e^z) by logaddexp, as the JAX package writes it:
+        # torch's softplus switches to z above a threshold
+        z = p2 * x
+        return torch.logaddexp(torch.zeros((), dtype=z.dtype, device=z.device), z)
+
+    def measurement_cond_pmf(y, x, p2):
+        rate = emission(x, p2)
+        return torch.exp(y * torch.log(rate) - rate - torch.lgamma(y + 1.0))
+
+    def m_and_cov(x, _dt):
+        m, v = tme.mean_and_var_1d(
+            x[..., 0], _dt, lambda u: drift(u, true_p1), dispersion, order=3
+        )
+        return m[..., None], v[..., None, None]
+
+    def simulate(generator: torch.Generator, nsamples: int = 1,
+                 integration_steps: int = 100) -> Array:
+        """Simulate an ensemble of trajectories; returns (nsamples, T).
+
+        ``generator`` must live on the model's device.
+        """
+        x0s = init_cond.sampler(generator, nsamples)
+        traj = simulate_sde(
+            m_and_cov, x0s[:, None], dt, T, generator=generator,
+            integration_steps=integration_steps,
+        )  # (T, nsamples, 1)
+        return traj[..., 0].T
+
+    return dt, T, ts, init_cond, drift, dispersion, emission, measurement_cond_pmf, simulate

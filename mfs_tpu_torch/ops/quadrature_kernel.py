@@ -22,9 +22,17 @@ as the TPU kernel's do; the f64 ``moment_quadrature`` path returns the
 normalised rule.  The filters pass normalised moment vectors (m_0 = 1),
 where the two coincide.
 
-Gradients are not ported: the JAX package differentiates this kernel
-through an implicit-function JVP, which arrives with the estimation
-slice (ROADMAP B3).  Inputs that require grad raise.
+Gradients: both routes run inside one ``torch.autograd.Function``
+(``_FusedQuadrature``), whose forward runs under no grad and whose
+backward is the transpose of the JAX package's implicit-function JVP
+(``mfs_tpu/ops/pallas_quadrature.py::_implicit_tangent``).  That
+derivative is exact at the primal: the rule solves the
+moment-reproduction identity ``sum_k w_k lam_k^j = m_j`` (j < 2n), so
+its Jacobian is the inverse of that identity's confluent Vandermonde
+matrix.  The backward
+is plain PyTorch: one batched f64 LU of the equilibrated (2n x 2n)
+matrix, solved transposed.  Bisection has no useful autograd
+derivative, so the plain route goes through the same Function.
 """
 import ctypes
 import functools
@@ -48,12 +56,6 @@ _PIVOT_DIAG = 1e-8
 def _prepare(ms: Array, mean, scale):
     if not torch.is_tensor(ms):
         raise TypeError("ms must be a tensor")
-    if any(torch.is_tensor(t) and t.requires_grad for t in (ms, mean, scale)):
-        raise NotImplementedError(
-            "gradients through the fused quadrature are not ported yet: "
-            "the implicit-function JVP comes with the estimation slice "
-            "(ROADMAP B3); use eigh_impl='xla' to differentiate"
-        )
     if ms.dtype != DTYPE:
         raise TypeError(f"ms must be float64, got {ms.dtype}")
     two_n = ms.shape[-1]
@@ -75,9 +77,22 @@ def moment_quadrature_fused(ms: Array, mean=0.0, scale=1.0, jitter: float = 0.0)
     ``jitter`` adds ``jitter * I`` to the equilibrated (unit-diagonal)
     Gram before factorising: the rescue tier's relative Tikhonov
     regularisation.
+
+    Differentiable in ``ms`` and in ``mean``/``scale`` when they are
+    tensors (a Python number gets no gradient); ``jitter`` is a constant.
     """
+    if not torch.is_tensor(ms):
+        raise TypeError("ms must be a tensor")
+    as_t = lambda v: v if torch.is_tensor(v) else torch.as_tensor(v, dtype=DTYPE,
+                                                                    device=ms.device)
+    return _FusedQuadrature.apply(ms, as_t(mean), as_t(scale), float(jitter))
+
+
+def _quadrature(ms: Array, mean: Array, scale: Array, jitter: float):
+    """The forward routes: the plain version on a CPU tensor, the CUDA
+    kernel on a CUDA tensor, and an error on any other device."""
     global LAUNCHES
-    if torch.is_tensor(ms) and ms.device.type == "cpu":
+    if ms.device.type == "cpu":
         return moment_quadrature_fused_plain(ms, mean, scale, jitter)
     n, batch_shape, B, mean, scale = _prepare(ms, mean, scale)
     if ms.device.type != "cuda":
@@ -96,6 +111,89 @@ def moment_quadrature_fused(ms: Array, mean=0.0, scale=1.0, jitter: float = 0.0)
         raise RuntimeError(f"quadrature_1d launch failed: CUDA error {err}")
     LAUNCHES += 1
     return w.T.reshape(batch_shape + (n,)), x.T.reshape(batch_shape + (n,))
+
+
+class _FusedQuadrature(torch.autograd.Function):
+    """Either forward route, with the implicit-function backward.
+
+    The backward transposes ``_implicit_tangent``'s JVP.  In the frame
+    ``t = lam / sigma``, ``lam = (x - mean) / scale``, the tangent solves
+    ``A [dw; dt] = dms / sigma^j`` and maps ``dx = dscale lam + scale
+    sigma dt + dmean``.  So for cotangents ``(gw, gx)``: ``gmean = sum_k
+    gx_k``, ``gscale = sum_k gx_k lam_k``, and ``gms = z / sigma^j`` with
+    ``A^T z = [gw; sigma scale gx]``.  ``A`` is rebuilt from the saved
+    primal rather than kept.
+    """
+
+    @staticmethod
+    def forward(ctx, ms, mean, scale, jitter):
+        w, x = _quadrature(ms, mean, scale, jitter)
+        ctx.save_for_backward(w, x, ms, mean, scale)
+        return w, x
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gw, gx):
+        w, x, ms, mean, scale = ctx.saved_tensors
+        batch_shape = ms.shape[:-1]
+        mean_b = mean.to(DTYPE).expand(batch_shape)[..., None]
+        scale_b = scale.to(DTYPE).expand(batch_shape)[..., None]
+        lam = (x - mean_b) / scale_b
+        need_ms, need_mean, need_scale, _ = ctx.needs_input_grad
+        g_ms = _implicit_vjp(w, lam, ms, scale_b, gw, gx) if need_ms else None
+        g_mean = gx.sum(-1).sum_to_size(mean.shape) if need_mean else None
+        g_scale = (gx * lam).sum(-1).sum_to_size(scale.shape) if need_scale else None
+        return g_ms, g_mean, g_scale, None
+
+
+def _vdm_frame(w, lam, ms):
+    """The moment-reproduction identity's confluent Vandermonde system in
+    the frame ``t = lam / sigma`` (JAX: ``_vdm_frame``): returns ``A``
+    (..., 2n, 2n), the Jacobian ``[P | w dP/dt]`` of ``sum_k w_k t_k^j``
+    in ``[w, t]``, with ``sigma`` (..., 1) and the orders ``j``.
+
+    The frame scale ``sigma = sqrt(m_2 / m_0)`` is a constant of the
+    derivative (JAX: a stop-gradient), with the same ``tiny`` clamps.
+    """
+    two_n = ms.shape[-1]
+    tiny = torch.finfo(DTYPE).tiny
+    m0 = ms[..., 0].clamp_min(tiny)
+    sigma = torch.sqrt((ms[..., 2] / m0).clamp_min(tiny))[..., None]
+    t = lam / sigma
+    powers = [torch.ones_like(t)]
+    for _ in range(two_n - 1):
+        powers.append(powers[-1] * t)
+    P = torch.stack(powers, dim=-2)  # (..., 2n, n): t_k^j
+    j = torch.arange(two_n, dtype=DTYPE, device=ms.device)
+    dPdt = j[:, None] * torch.cat([torch.zeros_like(P[..., :1, :]), P[..., :-1, :]], dim=-2)
+    return torch.cat([P, w[..., None, :] * dPdt], dim=-1), sigma, j
+
+
+def _implicit_vjp(w, lam, ms, scale, gw, gx):
+    """``gms`` of the implicit-function backward (``_FusedQuadrature``)."""
+    A, sigma, j = _vdm_frame(w, lam, ms)
+    z = _solve_transposed(A, torch.cat([gw, sigma * scale * gx], dim=-1))
+    return z / sigma**j
+
+
+def _solve_transposed(a: Array, b: Array) -> Array:
+    """``z`` with ``a^T z = b`` per trial, by one f64 LU of ``a`` after
+    max-abs row and column equilibration (``R a C``, as the JAX package's
+    ``_solve_f32_refined`` scales it), solved transposed: ``z = R (R a
+    C)^-T C b``.  A trial whose matrix is not finite or whose LU meets a
+    zero pivot gets NaN; its matrix is replaced by the identity before
+    the factorisation, so the batch does not raise."""
+    tiny = torch.finfo(a.dtype).tiny
+    row_s = 1.0 / a.abs().amax(-1).clamp_min(tiny)
+    a1 = a * row_s[..., :, None]
+    col_s = 1.0 / a1.abs().amax(-2).clamp_min(tiny)
+    a2 = a1 * col_s[..., None, :]
+    ok = torch.isfinite(a2).flatten(-2).all(-1)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    lu, piv, info = torch.linalg.lu_factor_ex(torch.where(ok[..., None, None], a2, eye))
+    y = torch.linalg.lu_solve(lu, piv, (col_s * b)[..., None], adjoint=True)[..., 0]
+    nan = torch.full((), float("nan"), dtype=a.dtype, device=a.device)
+    return torch.where((ok & (info == 0))[..., None], row_s * y, nan)
 
 
 @functools.lru_cache(maxsize=None)

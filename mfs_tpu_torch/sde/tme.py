@@ -7,10 +7,15 @@ Port of ``mfs_tpu/sde/tme.py``.  For
 the generator is ``A f = a f' + ½ b² f''`` and the TME of order ``p``
 approximates ``E[f(X_{t+dt}) | X_t = x] ≈ Σ_{r=0}^{p} dt^r / r! (A^r f)(x)``.
 
-Derivatives are nested forward-mode ``torch.func.jvp`` along a unit
-tangent: every function here is elementwise in ``x``, so that
-directional derivative *is* the elementwise derivative, and ``phi`` may
-append trailing output axes (the vector of all 2N monomials).
+Scalar state: every function is elementwise in ``x`` (``phi`` may
+append trailing output axes, the vector of all 2N monomials), so the
+derivative along a unit tangent *is* the elementwise derivative.  It is
+taken by autograd's double-backward trick (``_jvp_1d``), nested once per
+derivative order.  Nested ``torch.func.jvp`` computes the same numbers,
+but at TME-3's six levels its inner levels run through Python
+decompositions, ~30x slower on a CPU core.  The results carry an autograd
+graph only when ``x`` or a tensor the callables close over requires
+grad and grad mode is on.
 
 The vector-state half (``generator``, ``expectation``, ``mean_and_cov``)
 is batch-first in the same way: states are ``x (..., d)``, ``drift``
@@ -29,13 +34,47 @@ from torch.func import jvp
 from mfs_tpu_torch.typings import Array, FloatScalar
 
 
+def _jvp_1d(f: Callable, u: Array) -> Tuple[Array, Array]:
+    """``(f(u), f'(u))`` for ``f`` elementwise in ``u``, which keeps
+    ``u``'s shape on its leading axes and may append trailing ones.
+
+    The double-backward trick: ``g = J^T v`` for a dummy cotangent ``v``,
+    then the derivative of ``<g, 1>`` in ``v`` is ``J 1``, the
+    elementwise derivative.  ``create_graph`` keeps both differentiable,
+    so calls nest."""
+    with torch.enable_grad():
+        if not u.requires_grad:
+            u = u.detach().requires_grad_(True)
+        y = f(u)
+        zeros = torch.zeros_like(y)
+        if not y.requires_grad:
+            return y, zeros
+        v = torch.zeros_like(y, requires_grad=True)
+        # y may depend only on closed-over tensors (a constant drift with a
+        # parameter that requires grad): then its derivative is zero
+        (g,) = torch.autograd.grad(y, u, v, create_graph=True, allow_unused=True)
+        if g is None:
+            return y, zeros
+        (t,) = torch.autograd.grad(g, v, torch.ones_like(g), create_graph=True)
+    return y, t
+
+
+def _keeps_graph(x: Array, *probes) -> bool:
+    """Whether a 1D TME result needs its autograd graph: grad mode is on
+    and ``x`` or one of ``probes`` (the callables evaluated at ``x``)
+    requires grad.  Otherwise the graph only reaches ``_jvp_1d``'s own
+    leaf, and a filter loop would chain it from step to step."""
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(p) and p.requires_grad for p in (x,) + probes)
+
+
 def generator_1d(phi: Callable, drift: Callable, dispersion: Callable) -> Callable:
     """Generator for scalar-state SDEs: ``A phi = a phi' + 0.5 b^2 phi''``."""
 
     def a_phi(x):
-        d_phi = lambda u: jvp(phi, (u,), (torch.ones_like(u),))[1]
-        # One nested JVP gives phi' (its primal) and phi'' (its tangent).
-        dphi, ddphi = jvp(d_phi, (x,), (torch.ones_like(x),))
+        d_phi = lambda u: _jvp_1d(phi, u)[1]
+        # One nested derivative gives phi' (its primal) and phi'' (its tangent).
+        dphi, ddphi = _jvp_1d(d_phi, x)
         extra = (None,) * (dphi.ndim - x.ndim)
         a = (drift(x) * torch.ones_like(x))[(...,) + extra]
         b = (dispersion(x) * torch.ones_like(x))[(...,) + extra]
@@ -65,7 +104,8 @@ def expectation_1d(
 ):
     """TME of ``E[phi(X_{t+dt}) | X_t = x]`` for scalar-state SDEs."""
     gen = lambda f: generator_1d(f, drift, dispersion)
-    return _expansion(phi, gen, x, dt, order)
+    out = _expansion(phi, gen, x, dt, order)
+    return out if _keeps_graph(x, phi(x), drift(x), dispersion(x)) else out.detach()
 
 
 def _generator_powers(phi: Callable, gen_of: Callable, x, order: int):
@@ -113,9 +153,12 @@ def mean_and_var_1d(
     gen_of = lambda f: generator_1d(f, drift, dispersion)
     id_terms = _generator_powers(lambda u: u, gen_of, x, order)
     sq_terms = _generator_powers(lambda u: u * u, gen_of, x, order)
-    return _consistent_mean_cov(
+    mean, var = _consistent_mean_cov(
         id_terms, sq_terms, dt, order, lambda a, b: a * b
     )
+    if _keeps_graph(x, drift(x), dispersion(x)):
+        return mean, var
+    return mean.detach(), var.detach()
 
 
 def _trailing(v: Array, out: Array, batch_ndim: int) -> Array:

@@ -66,3 +66,36 @@ def simulate_sde(
                 x = m + (torch.linalg.cholesky(cov) @ e[..., None])[..., 0]
         traj.append(x)
     return torch.stack(traj)
+
+
+def simulate_sde_ensemble(
+    m_and_cov: Callable[[Array, FloatScalar], Tuple[Array, Array]],
+    x0s: Array,
+    dt: FloatScalar,
+    T: int,
+    generator: torch.Generator = None,
+    eps: Array = None,
+    diagonal_cov: bool = False,
+    integration_steps: int = 1,
+) -> Array:
+    """Simulate B independent trajectories at once (JAX:
+    ``mfs_tpu/utils/sdes.py::simulate_sde_ensemble``, one PRNG key a path).
+
+    Parameters
+    ----------
+    x0s : Array (B, d)
+    generator : torch.Generator
+        Source of every path's increments when ``eps`` is not given.
+    eps : Array (B, T, integration_steps, d), optional
+        Each path's own standard-normal increments (the tests feed the
+        draws of JAX's per-path keys here).
+
+    Returns
+    -------
+    Array (B, T, d)
+    """
+    if eps is not None:
+        eps = eps.movedim(0, 2)  # (T, integration_steps, B, d)
+    traj = simulate_sde(m_and_cov, x0s, dt, T, generator=generator, eps=eps,
+                        diagonal_cov=diagonal_cov, integration_steps=integration_steps)
+    return traj.movedim(1, 0)

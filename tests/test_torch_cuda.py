@@ -121,9 +121,13 @@ def test_kernel_raises_instead_of_falling_back(cuda):
         qk.moment_quadrature_fused(torch.ones(4, 66, dtype=torch.float64, device=cuda))
     with pytest.raises(TypeError):
         qk.moment_quadrature_fused(_mixture(3, 4, 0, cuda).float())
-    with pytest.raises(NotImplementedError):
-        qk.moment_quadrature_fused(_mixture(3, 4, 0, cuda).requires_grad_(True))
     assert qk.LAUNCHES == before
+    # inputs that require grad run the kernel too (the backward is plain
+    # torch), never the plain version
+    ms = _mixture(3, 4, 0, cuda).requires_grad_(True)
+    (g,) = torch.autograd.grad(qk.moment_quadrature_fused(ms)[1].sum(), ms)
+    assert qk.LAUNCHES == before + 1
+    assert g.shape == ms.shape and bool(torch.isfinite(g).all())
 
 
 def test_filter_on_card_matches_cpu_plain_path(cuda):

@@ -131,21 +131,22 @@ _EXPORTS = {
     "sde": ["generator", "generator_1d", "expectation", "expectation_1d", "mean_and_cov",
             "mean_and_var_1d", "sde_cond_moments_tme", "sde_cond_moments_tme_normal",
             "sde_cond_moments_euler"],
-    "models": ["benes_bernoulli", "lotka_volterra_3d", "prey_predator",
+    "models": ["benes_bernoulli", "well_poisson", "lotka_volterra_3d", "prey_predator",
                "satellite_orbital_stability"],
     "ops": ["eigh_batched", "eigh_xla", "eigh_refined"],
     "one_dim": ["hankel_indices", "moment_quadrature", "moment_filter_rms", "moment_filter_cms",
                 "moment_filter_scms"],
     "utils": ["normal_raw_moments_all", "GaussianSum1D", "GaussianSumND", "ldl", "ldl_chol",
-              "simulate_sde"],
+              "simulate_sde", "simulate_sde_ensemble"],
     "parallel": ["rescue_diverged"],
+    "estimation": ["fit_mle_scipy", "fit_mle_optax", "lbfgs_batched"],
 }
 
 
 @pytest.fixture(scope="module")
 def fresh_imports():
     """Per subpackage, (returncode, stderr) of importing its re-exported
-    names as the first import of a fresh interpreter; the six run at once."""
+    names as the first import of a fresh interpreter; they all run at once."""
     import os
     import subprocess
     import sys

@@ -1,6 +1,7 @@
 """The port stands alone: nothing under ``mfs_tpu_torch/`` and nothing in
-``chip_smoke.py`` imports ``jax`` or the JAX package ``mfs_tpu`` (the
-module itself or its submodules; ``mfs_tpu_torch`` is not matched)."""
+``chip_smoke.py`` imports ``jax``, the JAX package ``mfs_tpu`` (the
+module itself or its submodules; ``mfs_tpu_torch`` is not matched) or
+``optax``, which the GPU host does not have."""
 import ast
 from pathlib import Path
 
@@ -9,7 +10,7 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "mfs_tpu", "jaxlib")
+FORBIDDEN = ("jax", "mfs_tpu", "jaxlib", "optax")
 
 
 def _port_files():
@@ -47,3 +48,4 @@ def test_forbidden_matcher():
     assert _forbidden("mfs_tpu") and _forbidden("mfs_tpu.ops.eigh") and _forbidden("jax.numpy")
     assert not _forbidden("mfs_tpu_torch") and not _forbidden("mfs_tpu_torch.ops")
     assert not _forbidden("jaxtyping_like")
+    assert _forbidden("optax") and _forbidden("optax.contrib")

@@ -150,11 +150,15 @@ def test_nonfinite_inputs_give_nan_not_errors():
 
 
 def test_fused_rejects_what_it_cannot_do():
+    """Out-of-range orders and non-f64 moments raise; inputs that require
+    grad are taken, and the gradient flows to ``ms`` and to ``mean``."""
     ms = _t(_mixture(3, 2, seed=7))
-    with pytest.raises(NotImplementedError, match="B3"):
-        qk.moment_quadrature_fused(ms.clone().requires_grad_(True))
-    with pytest.raises(NotImplementedError, match="B3"):
-        qk.moment_quadrature_fused(ms, torch.zeros(2, dtype=torch.float64, requires_grad=True))
+    m = ms.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(qk.moment_quadrature_fused(m)[1].sum(), m)
+    assert g.shape == ms.shape and torch.isfinite(g).all() and g.abs().max() > 0
+    mean = torch.zeros(2, dtype=torch.float64, requires_grad=True)
+    (g,) = torch.autograd.grad(qk.moment_quadrature_fused(ms, mean)[1].sum(), mean)
+    assert torch.equal(g, torch.full_like(mean, 3.0))  # d(sum_k x_k)/d(mean) = n
     with pytest.raises(ValueError):
         qk.moment_quadrature_fused(torch.ones(2, 66, dtype=torch.float64))  # n = 33
     with pytest.raises(ValueError):

@@ -1,10 +1,11 @@
 """Port vs JAX: TME expansions, transition-moment factories and SDE
 simulation, on the same numpy inputs.
 
-Bound for the expansions: rtol 1e-11.  Both sides differentiate with
-nested forward mode (``jax.jvp`` / ``torch.func.jvp``) and evaluate the
-same expression tree; they differ in the order of a few sums, and the
-order-30 Normal-closure recurrence amplifies that by up to ~1e3 ulps.
+Bound for the expansions: rtol 1e-11.  JAX differentiates with nested
+forward mode (``jax.jvp``), the port's scalar-state TME with nested
+double-backward autograd (``tme._jvp_1d``); both evaluate the same
+expression tree and differ in the order of a few sums, and the order-30
+Normal-closure recurrence amplifies that by up to ~1e3 ulps.
 """
 import numpy as np
 import pytest
@@ -63,6 +64,37 @@ def test_expectation_1d_vector_phi(models):
         jnp.asarray(x), DT, jm.drift, jm.dispersion, 3,
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL)
+
+
+def test_1d_tme_keeps_a_graph_only_where_one_is_needed():
+    """Nodes and callables that need no gradient give results without an
+    autograd graph (a filter or simulation loop would chain it from step
+    to step), in grad mode too; a drift parameter or nodes that require
+    grad keep it, and its gradients match central differences."""
+    x = _t(_nodes()[:, :5])
+    p = torch.tensor(3.0, dtype=torch.float64, requires_grad=True)
+    drift = lambda u: u * (1.0 - p * u**2)
+    one = lambda u: torch.ones_like(u)
+    for out in (*tme.mean_and_var_1d(x, DT, lambda u: u * (1.0 - 3.0 * u**2), one, 3),
+                tme.expectation_1d(lambda u: torch.stack([u, u * u], -1), x, DT, torch.tanh,
+                                   one, 2)):
+        assert not out.requires_grad
+    with torch.no_grad():
+        assert not tme.mean_and_var_1d(x, DT, drift, one, 3)[0].requires_grad
+    xg = x.clone().requires_grad_(True)
+    m, v = tme.mean_and_var_1d(xg, DT, drift, one, 3)
+    gx, gp = torch.autograd.grad((m + 7.0 * v).sum(), (xg, p))
+
+    def f(dx, dp):
+        with torch.no_grad():
+            m, v = tme.mean_and_var_1d(x + dx, DT, lambda u: u * (1.0 - (3.0 + dp) * u**2), one, 3)
+            return (m + 7.0 * v).sum().item()
+
+    eps = 1e-6
+    d = _t(np.random.RandomState(1).randn(*x.shape))
+    np.testing.assert_allclose((gx * d).sum().item(), (f(eps * d, 0) - f(-eps * d, 0)) / (2 * eps),
+                               rtol=1e-7)
+    np.testing.assert_allclose(gp.item(), (f(0, eps) - f(0, -eps)) / (2 * eps), rtol=1e-6)
 
 
 @pytest.mark.parametrize("tme_order", [2, 3])
