@@ -32,3 +32,11 @@ def default_device(device=None) -> torch.device:
 def as_tensor(x, device=None) -> torch.Tensor:
     """``x`` as a float64 tensor on ``device`` (resolved as above)."""
     return torch.as_tensor(x, dtype=DTYPE, device=default_device(device))
+
+
+def check_generator(generator: torch.Generator, device) -> None:
+    """Raise ``ValueError`` unless ``generator`` lives on ``device``: a
+    stream is never moved to the data's device behind the caller's back."""
+    g, d = torch.device(generator.device), torch.device(device)
+    if g.type != d.type or (g.type == "cuda" and (g.index or 0) != (d.index or 0)):
+        raise ValueError(f"mfs_tpu_torch: the generator lives on {g}, the data on {d}")

@@ -3,8 +3,9 @@
 Batch-first: ``simulate`` generates a whole Monte-Carlo ensemble in one
 call, every trajectory advancing together.
 """
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from mfs_tpu_torch.config import DTYPE, default_device
@@ -26,6 +27,25 @@ class Model1D(NamedTuple):
     emission: Callable
     measurement_cond_pdf: Callable
     simulate: Callable  # (generator, nsamples) -> xss (nsamples, T)
+    simulate_trials: Callable = None  # (seed, trial_ids) -> xss
+
+
+def _trial_draws(seed: int, trial_ids: Sequence[int], init_cond: GaussianSum1D, T: int,
+                integration_steps: int):
+    """Each trial's initial state and standard-normal increments, drawn
+    from its own stream ``np.random.default_rng([seed, i])``, so trial
+    ``i`` depends only on ``(seed, i)``.  Returns ``x0s (B,)`` and
+    ``eps (T, integration_steps, B, 1)`` as numpy arrays."""
+    cum = np.cumsum(init_cond.weights.cpu().numpy())
+    means = init_cond.means.cpu().numpy()
+    sds = np.sqrt(init_cond.variances.cpu().numpy())
+    x0s, eps = [], []
+    for i in trial_ids:
+        rng = np.random.default_rng([seed, int(i)])
+        c = min(int(np.searchsorted(cum, rng.random(), side="right")), cum.shape[0] - 1)
+        x0s.append(means[c] + sds[c] * rng.standard_normal())
+        eps.append(rng.standard_normal((T, integration_steps)))
+    return np.asarray(x0s), np.stack(eps, axis=-1)[..., None]
 
 
 def benes_bernoulli(N: int = 2, device=None) -> Model1D:
@@ -73,6 +93,19 @@ def benes_bernoulli(N: int = 2, device=None) -> Model1D:
         )  # (T, nsamples, 1)
         return traj[..., 0].T
 
+    def simulate_trials(seed: int, trial_ids: Sequence[int],
+                        integration_steps: int = 100) -> Array:
+        """Per-trial reproducible ensemble, ``(len(trial_ids), T)``: trial
+        ``i`` depends only on ``(seed, i)`` (``_trial_draws``), so chunked
+        sweeps give the same trajectories for any chunk size (JAX:
+        ``jax.random.fold_in(base_key, i)``)."""
+        x0s, eps = _trial_draws(seed, trial_ids, init_cond, T, integration_steps)
+        traj = simulate_sde(
+            m_and_cov, torch.as_tensor(x0s, device=device)[:, None], dt, T,
+            eps=torch.as_tensor(eps, device=device), integration_steps=integration_steps,
+        )  # (T, B, 1)
+        return traj[..., 0].T
+
     return Model1D(
         dt=dt,
         T=T,
@@ -83,6 +116,7 @@ def benes_bernoulli(N: int = 2, device=None) -> Model1D:
         emission=emission,
         measurement_cond_pdf=measurement_cond_pdf,
         simulate=simulate,
+        simulate_trials=simulate_trials,
     )
 
 

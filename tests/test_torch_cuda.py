@@ -533,3 +533,110 @@ def test_ldl_launch_geometry(cuda, s, B):
     assert torch.equal(Lu[ok].triu(), eye.expand(int(ok.sum()), s, s))
     if B > 1:
         assert bool(torch.isnan(piv[nan]).all() and torch.isnan(Lu[nan]).any())
+
+
+# ---------------------------------------------------------------------------
+# mfs_tpu_torch.filters: the grid truth, the GHF and the bootstrap PF
+# ---------------------------------------------------------------------------
+
+from mfs_tpu_torch.filters import (  # noqa: E402
+    SigmaPoints,
+    bootstrap_filter,
+    brute_force_filter,
+    continuous_resampling,
+    sgp_filter,
+    stratified,
+)
+from mfs_tpu_torch.sde import tme  # noqa: E402
+
+
+def _benes_ys(T, B, seed):
+    return np.random.RandomState(seed).binomial(1, 0.5, (T, B)).astype(np.float64)
+
+
+def test_grid_filter_on_card_matches_cpu(cuda):
+    """Chapman TME-3 on 600 points, 10 substeps, 4 trials, T=20: a cuda
+    result within rtol 1e-10 of the CPU run's."""
+    ys = _benes_ys(20, 4, 0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = benes_bernoulli(N=2, device=dev)
+        xs = torch.linspace(-5.0, 5.0, 600, dtype=torch.float64, device=dev)
+        pss = brute_force_filter(model.drift, model.dispersion, model.measurement_cond_pdf,
+                                 model.init_cond.pdf(xs).expand(4, 600), xs,
+                                 torch.as_tensor(ys, device=dev), model.dt, 10, "chapman-tme-3")
+        assert pss.device.type == dev and pss.shape == (20, 4, 600)
+        out[dev] = pss.cpu().numpy()
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-10)
+
+
+def test_ghf_on_card_matches_cpu(cuda):
+    """The paper's GHF (gh = 11, TME-3), 8 trials, T=100: cuda outputs
+    within rtol 1e-10 of the CPU run's."""
+    ys = _benes_ys(100, 8, 1)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = benes_bernoulli(N=2, device=dev)
+
+        def cond(x, dt):
+            m, v = tme.mean_and_var_1d(x[..., 0], dt, model.drift, model.dispersion, 3)
+            return m[..., None], v[..., None, None]
+
+        def meas(x):
+            p = model.emission(x[..., 0])
+            return p[..., None], (p * (1 - p))[..., None, None]
+
+        ic = model.init_cond
+        res = sgp_filter(cond, meas, SigmaPoints.gauss_hermite(1, 11, device=dev),
+                         ic.mean.expand(8, 1), ic.variance.expand(8, 1, 1), model.dt,
+                         torch.as_tensor(ys, device=dev)[..., None])
+        assert all(r.device.type == dev for r in res)
+        out[dev] = [r.cpu().numpy() for r in res]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=1e-10)
+
+
+def test_pf_on_card(cuda):
+    """The bootstrap PF (TME-3 proposal, stratified) on cuda data with a
+    cuda generator: cuda outputs, finite, reproducible from the seed,
+    each step's particle mean near the grid truth's mean (PF error at
+    10,000 particles)."""
+    ys = torch.as_tensor(_benes_ys(20, 4, 2), device=cuda)
+    model = benes_bernoulli(N=2, device=cuda)
+
+    def sampler(s, g):
+        m, v = tme.mean_and_var_1d(s, model.dt, model.drift, model.dispersion, 3)
+        return m + torch.sqrt(v) * torch.randn(s.shape, generator=g, dtype=s.dtype, device=s.device)
+
+    def run(seed):
+        return bootstrap_filter(sampler, model.measurement_cond_pdf, ys,
+                                lambda g, n: model.init_cond.sampler(g, 4 * n).reshape(4, n),
+                                torch.Generator(device=cuda).manual_seed(seed), 10_000, stratified,
+                                out_fn=lambda s: s.mean(-1))
+
+    means, nell = run(0)
+    assert means.device.type == nell.device.type == "cuda" and means.shape == (20, 4)
+    assert bool(torch.isfinite(means).all() and torch.isfinite(nell).all())
+    assert torch.equal(run(0)[0], means) and not torch.equal(run(1)[0], means)
+    xs = torch.linspace(-6.0, 6.0, 2000, dtype=torch.float64, device=cuda)
+    pss = brute_force_filter(model.drift, model.dispersion, model.measurement_cond_pdf,
+                             model.init_cond.pdf(xs).expand(4, 2000), xs, ys, model.dt, 100,
+                             "chapman-tme-3")
+    truth = (pss * xs).sum(-1) * (xs[1] - xs[0])
+    assert (means - truth).abs().max().item() < 0.1
+
+
+def test_generator_on_another_device_raises(cuda):
+    """A CPU generator with cuda data raises; it is never moved."""
+    w = torch.full((3, 10), 0.1, dtype=torch.float64, device=cuda)
+    g = torch.Generator()
+    with pytest.raises(ValueError):
+        stratified(w, g)
+    with pytest.raises(ValueError):
+        continuous_resampling(w, w, 10, g)
+    model = benes_bernoulli(N=2, device=cuda)
+    with pytest.raises(ValueError):
+        bootstrap_filter(lambda s, gg: s, model.measurement_cond_pdf,
+                         torch.ones((5, 3), dtype=torch.float64, device=cuda),
+                         lambda gg, n: torch.zeros((3, n), dtype=torch.float64, device=cuda),
+                         g, 10, stratified)

@@ -137,7 +137,12 @@ _EXPORTS = {
     "one_dim": ["hankel_indices", "moment_quadrature", "moment_filter_rms", "moment_filter_cms",
                 "moment_filter_scms"],
     "utils": ["normal_raw_moments_all", "GaussianSum1D", "GaussianSumND", "ldl", "ldl_chol",
-              "simulate_sde", "simulate_sde_ensemble"],
+              "simulate_sde", "simulate_sde_ensemble", "discretise_lti_sde"],
+    "filters": ["SigmaPoints", "rk4_m_cov", "rk4_m_cov_backward", "gaussian_expectation", "kf",
+                "rts", "ekf", "eks", "cd_ekf", "cd_eks", "sgp_filter", "sgp_smoother",
+                "cd_sgp_filter", "cd_sgp_smoother", "bootstrap_filter", "particle_filter",
+                "systematic", "stratified", "multinomial", "continuous_resampling",
+                "brute_force_filter"],
     "parallel": ["rescue_diverged"],
     "estimation": ["fit_mle_scipy", "fit_mle_optax", "lbfgs_batched"],
 }
