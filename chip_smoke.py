@@ -24,7 +24,17 @@ plain PyTorch version:
   rescued), the Gauss–Hermite filter and the bootstrap particle filter
   (``mfs_tpu_torch.filters``), each scored against the truth, with the
   truth, the moment filters and the GHF re-run on the CPU for a few
-  trials.
+  trials;
+- the convergence study (``experiments/convergence.py``): 10,000 OU /
+  Matérn-1/2 trials, K1's central and raw filters at N = 2, ..., 15
+  against the exact Kalman filter, the central filter through the
+  in-repo Jacobi eigensolver and the quadrature-free Taylor filter, the
+  particle-filter foil at 100, 1,000 and 10,000 particles, and the
+  posterior Cramér–Rao bound, with 64 trials re-run on the CPU;
+- the density recovery (``examples/benes_bernoulli_demo.py``): Fig 4's
+  N=8 and N=15 filter states at ten steps turned into Gram–Charlier,
+  Edgeworth, saddle-point and inverse-Fourier densities, scored against
+  the grid truth, with 8 trials' densities re-run on the CPU.
 
     python3 chip_smoke.py
 
@@ -35,6 +45,7 @@ last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU and ``nvcc``
 (``/usr/local/cuda/bin`` or on ``PATH``); imports nothing of JAX.
 """
 import json
+import math
 import multiprocessing
 import subprocess
 import sys
@@ -63,8 +74,18 @@ FP64_TC_FLOP_PER_S = 67e12
 SPIN_CYCLES = 200_000_000  # ~0.1 s at the H100's ~1.98 GHz boost clock
 
 
+_EIGH_SEEN = {"masked": 0}
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line.  ``eigh_masked``: matrices the f64 eigh route
+    (``ops/eigh.py``, behind "xla"/"refined", rescue tier 2 and the ND
+    routes after the K-builder) returned NaN because cuSOLVER did not
+    converge on them, since the previous line."""
+    from mfs_tpu_torch.ops import eigh
+    masked = eigh.NONCONVERGED - _EIGH_SEEN["masked"]
+    _EIGH_SEEN["masked"] = eigh.NONCONVERGED
+    print(json.dumps({"phase": phase, **fields, "eigh_masked": masked}), flush=True)
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -168,6 +189,27 @@ def phase_build():
          ptxas={n: _ptxas(logs.get(n) or build.saved_log(n)) for n in names})
 
 
+def phase_eigh_batch_limit():
+    """cuSOLVER's batched f64 eigh (``torch.linalg.eigh``) on ``EIGH_CHUNK``
+    and on twice as many random symmetric 15 x 15 matrices: the first must
+    go through in one call, since the port's f64 route
+    (``ops/eigh.py::_eigh_f64``) cuts every batch to that size; whether
+    the library takes the second is reported."""
+    from mfs_tpu_torch.ops.eigh import EIGH_CHUNK
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    taken = {}
+    for B in (EIGH_CHUNK, 2 * EIGH_CHUNK):
+        a = torch.randn(B, 15, 15, generator=gen, dtype=torch.float64, device="cuda")
+        try:
+            torch.linalg.eigh(a + a.mT)
+            taken[B] = True
+        except torch.linalg.LinAlgError as e:
+            taken[B] = str(e)[:160]
+    emit("eigh_batch_limit", n=15, **{f"B_{B}": v for B, v in taken.items()})
+    if taken[EIGH_CHUNK] is not True:
+        raise AssertionError(f"cuSOLVER refuses EIGH_CHUNK = {EIGH_CHUNK} matrices a call")
+
+
 def phase_kernel_vs_plain():
     """K1 against its plain version on the card, at n in {3, 8, 15, 32},
     B in {1, 513, 4096} (513: the ragged block edge), jitter in {0, 1e-8}.
@@ -252,11 +294,12 @@ def phase_timing(model, trans):
 def k1_timing(ms, mean, zs=None):
     """K1 against its plain version and the f64 library yardstick on the
     same inputs, with its bound.  The two versions' nodes and weights
-    must agree to 1e-9; with ``zs`` (Fig 4's scoring inputs, where a
-    rule may carry nodes of weight ~1e-30 that the moments do not
-    place, so the nodes' order can differ) the rules are held as
-    measures instead: their characteristic functions on ``zs`` within
-    1e-12, the elementwise gap reported."""
+    must agree to 1e-9; with ``zs`` (Fig 4's scoring inputs and the
+    convergence study's N=15 states, where a rule may carry nodes of tiny
+    weight that the moments do not place, so those nodes and the nodes'
+    order can differ) the rules are held as measures instead: their
+    characteristic functions on ``zs`` within 1e-12, the elementwise gap
+    reported."""
     from mfs_tpu_torch.ops import quadrature_kernel as qk
     B, n = ms.shape[0], ms.shape[-1] // 2
     scale = torch.ones_like(mean)
@@ -284,21 +327,14 @@ def k1_timing(ms, mean, zs=None):
 
     def library_path():
         # cholesky + 2 triangular solves + eigh: a multi-call yardstick,
-        # no single PyTorch call computes K1's function.  cuSOLVER's
-        # batched eigh rejects a batch of 100,000 (CUSOLVER_STATUS_INVALID_VALUE
-        # on an H100), so it takes 16,384 matrices a call, through the
-        # port's f64 route (``eigh_xla``: a non-finite matrix masked).
+        # no single PyTorch call computes K1's function.  The eigh is the
+        # port's f64 route (``eigh_xla``), which takes any batch.
         from mfs_tpu_torch.ops.eigh import eigh_xla
         R, _ = torch.linalg.cholesky_ex(ms[:, g])
         X = torch.linalg.solve_triangular(R, ms[:, g + 1], upper=False)
         K = torch.linalg.solve_triangular(R.mT, X, upper=True, left=False)
-        return [eigh_xla(k) for k in (0.5 * (K + K.mT)).split(16_384)]
-    try:
-        lib_k = cuda_ms(library_path, reps=3, warmup=1)
-    except torch.linalg.LinAlgError as e:
-        # cuSOLVER's eigh fails to converge on some of Fig 4's scoring
-        # inputs (finite, ill-conditioned K): the yardstick is not timed
-        lib_k = f"not timed: {str(e)[:120]}"
+        return eigh_xla(0.5 * (K + K.mT))
+    lib_k = cuda_ms(library_path, reps=3, warmup=1)
 
     ops, divs = k1_flops(n)
     nbytes = (4 * n + 2) * 8 * B
@@ -1913,12 +1949,473 @@ def phase_fig4_cpu_reference(pending, pss, moment, ghf):
         raise AssertionError(f"the card's Fig-4 runs disagree with the CPU re-runs: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# The paper's convergence study (experiments/convergence.py): the OU /
+# Matérn-1/2 model, the moment filter against the exact Kalman filter over
+# N; and the density recovery of examples/benes_bernoulli_demo.py on
+# Fig 4's trials against the grid truth
+# ---------------------------------------------------------------------------
+
+CONV_SEED = 0
+CONV_B = 10_000
+CONV_DT = 0.1  # T = 100 steps, as the main path's T
+CONV_ELL, CONV_SIGMA, CONV_XI = 1.0, 0.5, 1.0
+CONV_NS = tuple(range(2, 16))
+CONV_RAW_CLEAN_N = 11  # raw mode loses no trial up to here (JAX: none)
+CONV_JAX_FACTOR = 1.5
+CONV_JACOBI_NS = (5, 15)
+CONV_JACOBI_RTOL = 1e-6  # nell, the 1D kernel-vs-plain bound
+CONV_TAYLOR_N, CONV_TAYLOR_ORDER = 3, 2
+CONV_TAYLOR_MEAN_GAP = 0.3  # the JAX package's test bound against the cms filter
+CONV_PF_B = 1000
+CONV_PF_PARTICLES = (100, 1000, 10_000)
+CONV_PCRLB_RTOL = 1e-6
+CONV_CPU_TRIALS = 64
+CONV_CPU_NS = (5, 10, 15)
+DENSITY_NS = (8, 15)
+DENSITY_STEPS = tuple(range(9, T, 10))  # t = 10, 20, ..., 100
+# The inverse Fourier transform's z grid: [-8, 8] by 0.1.  Its period
+# 2 pi / 0.1 ~ 63 is far wider than the truth's [-6, 6], and a quadrature
+# rule's CF does not decay, so the window sets the smoothing (~pi / 8).
+DENSITY_Z = (-8.0, 8.0, 161)
+DENSITY_CHUNK = 2500  # densities a call: (2500, 2000, 30) Hermite ladders, 1.2 GB
+DENSITY_FOURIER_CHUNK = 250  # (250, 2000, 161) complex phase tensors, 1.3 GB
+DENSITY_CPU_TRIALS = 8  # at every step of DENSITY_STEPS: 80 densities an N
+DENSITY_CPU_RTOL = 1e-9  # of each density's peak
+DENSITY_MASS_GAP = 1e-2
+DENSITY_METHODS = ("gram_charlier", "edgeworth", "saddle_point", "inverse_fourier")
+
+
+def conv_transition():
+    """The exact discretisation of the OU SDE: x' = F x + sqrt(Q) eps."""
+    F = math.exp(-CONV_DT / CONV_ELL)
+    return F, CONV_SIGMA**2 * (1 - math.exp(-2 * CONV_DT / CONV_ELL))
+
+
+def conv_simulate(B, generator):
+    """``experiments/convergence.py::simulate`` from a torch generator:
+    x0 (B,) ~ N(0, sigma^2), the states xs (T, B) and ys = xs + noise."""
+    F, Q = conv_transition()
+    kw = dict(generator=generator, dtype=torch.float64, device=generator.device)
+    x = CONV_SIGMA * torch.randn(B, **kw)
+    steps, noise = torch.randn(T, B, **kw), torch.randn(T, B, **kw)
+    x0, xs = x, []
+    for eps in steps:
+        x = F * x + math.sqrt(Q) * eps
+        xs.append(x)
+    xs = torch.stack(xs)
+    return x0, xs, xs + math.sqrt(CONV_XI) * noise
+
+
+def kalman_batch(ys):
+    """The exact Kalman filter of ``experiments/convergence.py::kalman_batch``
+    on ys (T, B): filtering means and variances (T, B)."""
+    F, Q = conv_transition()
+    mf = torch.zeros(ys.shape[1], dtype=ys.dtype, device=ys.device)
+    vf = torch.full_like(mf, CONV_SIGMA**2)
+    mfs, vfs = [], []
+    for y in ys:
+        mp, vp = F * mf, F * vf * F + Q
+        gain = vp / (vp + CONV_XI)
+        mf = mp + gain * (y - mp)
+        vf = vp - vp * gain
+        mfs.append(mf)
+        vfs.append(vf)
+    return torch.stack(mfs), torch.stack(vfs)
+
+
+def conv_meas(y, x):
+    return torch.exp(-0.5 * (y - x) ** 2 / CONV_XI) / math.sqrt(2 * math.pi * CONV_XI)
+
+
+def conv_filter(N, mode, ys, eigh_impl="auto"):
+    """The moment filter of ``experiments/convergence.py`` at order N in
+    ``mode`` ("central" or "raw") on ys (T, B), with its closed-form
+    Normal transition moments.  Returns means, variances (T, B), nell (B,)
+    and the central moments (T, B, 2N) (None in raw mode)."""
+    from mfs_tpu_torch.one_dim.filtering import moment_filter_cms, moment_filter_rms
+    from mfs_tpu_torch.one_dim.moments import raw_to_central
+    from mfs_tpu_torch.utils.gaussian import normal_raw_moments_all
+    F, Q = conv_transition()
+    B = ys.shape[1]
+    zero = torch.zeros(B, dtype=ys.dtype, device=ys.device)
+    rms0 = normal_raw_moments_all(zero, CONV_SIGMA**2, 2 * N)
+    if mode == "raw":
+        rmss, nell = moment_filter_rms(lambda x: normal_raw_moments_all(F * x, Q, 2 * N),
+                                       conv_meas, rms0, ys, eigh_impl=eigh_impl)
+        means = rmss[..., 1]
+        return means, rmss[..., 2] - means**2, nell, None
+    cmss, means, nell = moment_filter_cms(
+        lambda x, m: normal_raw_moments_all(F * x - m, Q, 2 * N), lambda x: F * x, conv_meas,
+        raw_to_central(rms0), zero, ys, eigh_impl=eigh_impl)
+    return means, cmss[..., 2], nell, cmss
+
+
+def conv_scores(means, variances, kf_m, kf_v):
+    """``experiments/convergence.py``'s masking and errors: a trial is
+    divergent unless its means and variances are finite and its
+    variances positive at every step; the errors average over the others
+    and T."""
+    finite = (torch.isfinite(means).all(0) & torch.isfinite(variances).all(0)
+              & (variances > 0).all(0))
+    m, v, km, kv = (a[:, finite] for a in (means, variances, kf_m, kf_v))
+    kl = 0.5 * (torch.log(kv / v) + (v + (m - km) ** 2) / kv - 1.0)
+    return dict(divergent=int((~finite).sum()), abs_mean_err=float((m - km).abs().mean()),
+                abs_var_err=float((v - kv).abs().mean()), gauss_kl=float(kl.mean())), finite
+
+
+def conv_jax_rows():
+    """JAX's rows of ``experiments/SUMMARY_convergence.json`` by (N, mode)
+    and by particle count: the estimators' statistics, not TPU timings."""
+    rows = json.loads((ROOT / "experiments/SUMMARY_convergence.json").read_text())["rows"]
+    return ({(r["N"], r["mode"]): r for r in rows if "mode" in r},
+            {r["nparticles"]: r for r in rows if r.get("method") == "pf"})
+
+
+def phase_conv_data(smi):
+    """The OU trials on the card (``torch.Generator`` seeded ``CONV_SEED``)
+    and the exact KF's means and variances."""
+    def run():
+        x0, xs, ys = conv_simulate(CONV_B, torch.Generator(device="cuda").manual_seed(CONV_SEED))
+        return (x0, xs, ys) + kalman_batch(ys)
+    (x0, xs, ys, kf_m, kf_v), wall, peak = on_card(run)
+    emit("conv_data", B=CONV_B, T=T, dt=CONV_DT, ell=CONV_ELL, sigma=CONV_SIGMA, xi=CONV_XI,
+         wall_s=wall, peak_mem_added_gb=peak, state_range=[xs.min().item(), xs.max().item()],
+         kf_var_last=kf_v[-1, 0].item(), card=smi)
+    return dict(x0=x0, xs=xs, ys=ys, kf_m=kf_m, kf_v=kf_v)
+
+
+def phase_conv_moment(data, smi):
+    """The central (K1, "auto") and raw filters at every N of ``CONV_NS``
+    on all trials, each scored against the KF beside JAX's row.  Checks:
+    2T K1 launches a pass; no central trial lost, no raw trial at
+    N <= ``CONV_RAW_CLEAN_N``; central ``abs_mean_err`` strictly falling
+    in N; every row's mean and variance errors within 1.5 x JAX's.
+    Returns the passes' outputs the later phases read."""
+    from mfs_tpu_torch.ops import quadrature_kernel as qk
+    jax_rows, _ = conv_jax_rows()
+    kept, launches_all, bad = {}, 0, []
+    keys = ("abs_mean_err", "abs_var_err")
+    for mode in ("central", "raw"):
+        for N in CONV_NS:
+            qk.LAUNCHES = 0
+            (means, variances, nell, cmss), wall, peak = on_card(
+                lambda: conv_filter(N, mode, data["ys"]))
+            launches = qk.LAUNCHES
+            launches_all += launches
+            row, finite = conv_scores(means, variances, data["kf_m"], data["kf_v"])
+            jax_row = jax_rows[N, mode]
+            emit("conv_moment", N=N, mode=mode, B=CONV_B, T=T, **row, wall_s=wall,
+                 peak_mem_added_gb=peak, k1_launches=launches,
+                 **{f"jax_{k}": jax_row[k] for k in ("divergent",) + keys + ("gauss_kl",)},
+                 jax_trials=jax_row["trials"], card=smi)
+            if launches != 2 * T:
+                bad.append(f"{mode} N={N}: {launches} K1 launches")
+            if row["divergent"] and (mode == "central" or N <= CONV_RAW_CLEAN_N):
+                bad.append(f"{mode} N={N}: {row['divergent']} divergent")
+            bad += [f"{mode} N={N} {k}" for k in keys
+                    if not row[k] <= CONV_JAX_FACTOR * jax_row[k]]
+            if mode == "central":
+                kept[N] = dict(means=means, nell=nell, finite=finite, row=row, wall_s=wall,
+                               ms10=cmss[9].contiguous(), mean10=means[9].contiguous())
+    errs = [kept[N]["row"]["abs_mean_err"] for N in CONV_NS]
+    bad += [f"central abs_mean_err N={a}->{b}" for a, b, e0, e1 in
+            zip(CONV_NS, CONV_NS[1:], errs, errs[1:]) if not e1 < e0]
+    emit("conv_moment_done", k1_launches=launches_all, failed=bad)
+    if bad:
+        raise AssertionError(f"convergence-study checks failed: {bad}")
+    return kept, launches_all
+
+
+def phase_conv_jacobi(data, central, smi):
+    """The central filter at ``CONV_JACOBI_NS`` through ``eigh_impl="jacobi"``
+    (f64 Cholesky, two solves and the in-repo cyclic Jacobi solver, plain
+    torch on the card) against the K1 pass on the same trials: the same
+    trials finite, nell within rtol 1e-6, the means' gap reported."""
+    bad = []
+    for N in CONV_JACOBI_NS:
+        (means, variances, nell, _), wall, peak = on_card(
+            lambda: conv_filter(N, "central", data["ys"], eigh_impl="jacobi"))
+        ref = central[N]
+        row, finite = conv_scores(means, variances, data["kf_m"], data["kf_v"])
+        both = finite & ref["finite"]
+        rel = ((nell - ref["nell"]).abs() / ref["nell"].abs())[both].max().item()
+        gap = (means - ref["means"])[:, both].abs().max().item()
+        same = bool((finite == ref["finite"]).all())
+        emit("conv_jacobi", N=N, B=CONV_B, T=T, wall_s=wall, peak_mem_added_gb=peak,
+             k1_wall_s=ref["wall_s"], nell_max_rel_gap=rel, means_max_abs_gap=gap,
+             same_finite_trials=same, **row, card=smi)
+        if not (same and rel <= CONV_JACOBI_RTOL):
+            bad.append(N)
+    if bad:
+        raise AssertionError(f"the Jacobi route disagrees with K1's at N={bad}")
+
+
+def phase_conv_taylor(data, central, smi):
+    """``moment_filter_taylor`` (no quadrature: derivative towers of the
+    model callables at the running mean) at N=3, ``taylor_order=2`` on all
+    trials, scored against the KF.  Checks: every output finite; its means
+    within 0.3 of the central N=3 filter's on average over trials and
+    steps.  The JAX test's form of the bound, each trial's largest gap
+    over time (one trial, 40 steps of a gentler model there), is
+    reported: on 10,000 OU trials the Taylor rule's bias passes 0.3 on
+    about a tenth of them (the method's, as JAX's filter gives the same
+    means to 1e-10 on the CPU)."""
+    from mfs_tpu_torch.one_dim.filtering import moment_filter_taylor
+    from mfs_tpu_torch.one_dim.moments import raw_to_central
+    from mfs_tpu_torch.ops import quadrature_kernel as qk
+    from mfs_tpu_torch.utils.gaussian import normal_raw_moments_all
+    F, Q = conv_transition()
+    N, ys = CONV_TAYLOR_N, data["ys"]
+    zero = torch.zeros(ys.shape[1], dtype=ys.dtype, device=ys.device)
+    qk.LAUNCHES = 0
+    (cmss, means, nell), wall, peak = on_card(lambda: moment_filter_taylor(
+        lambda x, m: normal_raw_moments_all(F * x - m, Q, 2 * N), lambda x: F * x, conv_meas,
+        raw_to_central(normal_raw_moments_all(zero, CONV_SIGMA**2, 2 * N)), zero, ys,
+        taylor_order=CONV_TAYLOR_ORDER))
+    row, _ = conv_scores(means, cmss[..., 2], data["kf_m"], data["kf_v"])
+    gap = (means - central[N]["means"]).abs()
+    per_trial = gap.amax(0)
+    all_finite = bool(torch.isfinite(cmss).all() & torch.isfinite(nell).all())
+    emit("conv_taylor", N=N, taylor_order=CONV_TAYLOR_ORDER, B=CONV_B, T=T, wall_s=wall,
+         peak_mem_added_gb=peak, **row, all_finite=all_finite, mean_gap_to_central=gap.mean().item(),
+         trial_max_gap_quantiles={q: per_trial.quantile(q).item() for q in (0.5, 0.9, 0.99)},
+         trial_max_gap_max=per_trial.max().item(),
+         trials_within_gap=(per_trial <= CONV_TAYLOR_MEAN_GAP).double().mean().item(),
+         central_abs_mean_err=central[N]["row"]["abs_mean_err"], k1_launches=qk.LAUNCHES,
+         card=smi)
+    if not (all_finite and gap.mean().item() <= CONV_TAYLOR_MEAN_GAP):
+        raise AssertionError(f"Taylor filter: finite {all_finite}, mean gap {gap.mean().item()}")
+
+
+def run_conv_pf(ys, nparticles, generator):
+    """The convergence script's PF foil on ys (T, b): the locally optimal
+    proposal N(F x + K (y - F x), Q - K Q), stratified resampling, the
+    particles' mean and variance a step.  Returns means, variances (T, b)."""
+    from mfs_tpu_torch.filters.resampling import stratified
+    from mfs_tpu_torch.filters.smc import particle_filter
+    F, Q = conv_transition()
+    gain = Q / (Q + CONV_XI)
+    prop_var = Q - gain * Q
+    b = ys.shape[1]
+    normal = lambda x, m, v: torch.exp(-0.5 * (x - m) ** 2 / v) / math.sqrt(2 * math.pi * v)
+
+    def proposal_sampler(anc, y, g):
+        m = F * anc + gain * (y - F * anc)
+        return m + math.sqrt(prop_var) * torch.randn(anc.shape, generator=g, dtype=anc.dtype,
+                                                     device=anc.device)
+
+    def init_sampler(g, n):
+        return CONV_SIGMA * torch.randn((b, n), generator=g, dtype=ys.dtype, device=ys.device)
+
+    return particle_filter(
+        proposal_sampler, lambda x, anc, y: normal(x, F * anc + gain * (y - F * anc), prop_var),
+        lambda x, anc: normal(x, F * anc, Q), conv_meas, ys, init_sampler, generator,
+        nparticles, stratified, out_fn=lambda s: (s.mean(-1), s.var(-1, correction=0)))
+
+
+def phase_conv_pf(data, smi):
+    """The PF foil on the first ``CONV_PF_B`` trials at each particle count,
+    scored against the KF: each row within 1.5 x JAX's."""
+    _, jax_pf = conv_jax_rows()
+    ys = data["ys"][:, :CONV_PF_B]
+    bad = []
+    for npart in CONV_PF_PARTICLES:
+        gen = torch.Generator(device="cuda").manual_seed(CONV_SEED + 7)
+        (pm, pv), wall, peak = on_card(lambda: run_conv_pf(ys, npart, gen))
+        row, _ = conv_scores(pm, pv, data["kf_m"][:, :CONV_PF_B], data["kf_v"][:, :CONV_PF_B])
+        jax_row = jax_pf[npart]
+        emit("conv_pf", particles=npart, B=CONV_PF_B, T=T, resampling="stratified", **row,
+             wall_s=wall, peak_mem_added_gb=peak,
+             **{f"jax_{k}": jax_row[k] for k in ("abs_mean_err", "abs_var_err", "gauss_kl")},
+             card=smi)
+        bad += [f"{npart} {k}" for k in ("abs_mean_err", "abs_var_err")
+                if not row[k] <= CONV_JAX_FACTOR * jax_row[k]]
+    if bad:
+        raise AssertionError(f"PF rows beyond 1.5 x JAX's: {bad}")
+
+
+def phase_conv_pcrlb(data, smi):
+    """``posterior_cramer_rao`` on all simulated trajectories with the OU
+    transition and likelihood log-densities: on this linear-Gaussian model
+    the bound equals the KF variance (rtol 1e-6)."""
+    from mfs_tpu_torch.utils.pcrlb import posterior_cramer_rao
+    F, Q = conv_transition()
+    trajs = torch.cat([data["x0"][None], data["xs"]])[..., None]  # (T + 1, B, 1)
+    j0 = torch.full((1, 1), 1.0 / CONV_SIGMA**2, dtype=trajs.dtype, device=trajs.device)
+    js, wall, peak = on_card(lambda: posterior_cramer_rao(
+        trajs, data["ys"][..., None], j0,
+        lambda xt, xs: -0.5 * (xt[0] - F * xs[0]) ** 2 / Q,
+        lambda y, x: -0.5 * (y[0] - x[0]) ** 2 / CONV_XI))
+    bound = 1.0 / js[:, 0, 0]
+    rel = ((bound - data["kf_v"][:, 0]).abs() / data["kf_v"][:, 0]).max().item()
+    emit("conv_pcrlb", trajectories=CONV_B, T=T, wall_s=wall, peak_mem_added_gb=peak,
+         max_rel_gap_to_kf_var=rel, pcrlb_last=bound[-1].item(), card=smi)
+    if not rel <= CONV_PCRLB_RTOL:
+        raise AssertionError(f"PCRLB vs KF variance: {rel}")
+
+
+def at_density_steps(a):
+    """``a (T, B, ...)`` at ``DENSITY_STEPS``, trial-major: (B * 10, ...)."""
+    a = a[list(DENSITY_STEPS)].transpose(0, 1)
+    return a.reshape((-1,) + a.shape[2:]).contiguous()
+
+
+def density_approximations(cms, mean, xs_grid, name):
+    """One approximation's densities ``(b, grid)`` of central moments
+    ``cms (b, 2N)`` about ``mean (b)``: the scaled moments (scale
+    sqrt(cms_2)) and their cumulants, then Gram–Charlier, Edgeworth
+    (order 2), the saddle point (50 Newton steps; "saddle_point_start":
+    none, the density at the Newton start), or the inverse Fourier
+    transform of the K1-quadrature characteristic function,
+    ``DENSITY_CHUNK`` densities a call."""
+    from mfs_tpu_torch.one_dim.moments import _powers, characteristic_fn, sms_to_cumulants
+    from mfs_tpu_torch.one_dim import pdf_approximations as pa
+    scale = torch.sqrt(cms[:, 2])
+    sms = cms / _powers(scale, cms.shape[-1])
+    if name == "inverse_fourier":
+        zs = torch.linspace(*DENSITY_Z, dtype=cms.dtype, device=cms.device)
+        cfs = characteristic_fn(zs, cms, mean)
+        return torch.cat([pa.inverse_fourier(xs_grid, c, zs)
+                          for c in cfs.split(DENSITY_FOURIER_CHUNK)])
+    if name.startswith("saddle_point"):
+        iters = 0 if name == "saddle_point_start" else 50
+        pdfs = [pa.saddle_point(s, m, c, newton_iters=iters)(xs_grid) for s, m, c in
+                zip(sms.split(DENSITY_CHUNK), mean.split(DENSITY_CHUNK),
+                    scale.split(DENSITY_CHUNK))]
+        return torch.cat(pdfs)
+    ks = sms_to_cumulants(sms, mean, scale)
+    make = pa.gram_charlier if name == "gram_charlier" else lambda k: pa.edgeworth(k, 2)
+    return torch.cat([make(k)(xs_grid) for k in ks.split(DENSITY_CHUNK)])
+
+
+def phase_density(pss, xs_grid, moment, smi):
+    """Densities of Fig 4's N=8 and N=15 filter states at t = 10, 20, ...,
+    100 (every finite trial: up to 10,000 an N) by each approximation,
+    against the grid truth: mean L1 (trapezoid) and sup distances, mean
+    trapezoid mass.  Checks: Gram–Charlier's mean mass within 1e-2 of 1.
+    Returns the first ``DENSITY_CPU_TRIALS`` trials' densities and inputs
+    (all ten steps) for the CPU re-run, and K1's launches (one a
+    characteristic function)."""
+    from mfs_tpu_torch.ops import quadrature_kernel as qk
+    tw = trapezoid_weights(xs_grid)
+    keep, launches, bad = {}, 0, []
+    for N in DENSITY_NS:
+        res, finite = moment[N]["merged"], torch.as_tensor(moment[N]["finite"], device=pss.device)
+        cms, mean, truth = (at_density_steps(a[:, finite])
+                            for a in (res["cmss"], res["means"], pss))
+        rows = DENSITY_CPU_TRIALS * len(DENSITY_STEPS)
+        keep[N] = dict(cms=cms[:rows].cpu().numpy(), mean=mean[:rows].cpu().numpy())
+        for name in DENSITY_METHODS:
+            qk.LAUNCHES = 0
+            pdf, wall, peak = on_card(lambda: density_approximations(cms, mean, xs_grid, name))
+            launches += qk.LAUNCHES
+            diff = (pdf - truth).abs()
+            mass = pdf @ tw
+            l1 = diff @ tw
+            row = dict(l1=float(l1.mean()), l1_median=float(l1.median()),
+                       sup=float(diff.amax(-1).mean()),
+                       mass=float(mass.mean()), mass_min=float(mass.min()),
+                       finite_share=float(torch.isfinite(pdf).all(-1).double().mean()))
+            emit("density", N=N, method=name, densities=cms.shape[0], grid=xs_grid.shape[0],
+                 **row, wall_s=wall, peak_mem_added_gb=peak, k1_launches=qk.LAUNCHES,
+                 z_grid=list(DENSITY_Z) if name == "inverse_fourier" else None, card=smi)
+            keep[N][name] = pdf[:rows].cpu().numpy()
+            if name == "gram_charlier" and not abs(row["mass"] - 1) <= DENSITY_MASS_GAP:
+                bad.append(f"N={N} Gram-Charlier mass {row['mass']}")
+        keep[N]["saddle_point_start"] = density_approximations(
+            cms[:rows], mean[:rows], xs_grid, "saddle_point_start").cpu().numpy()
+    if bad:
+        raise AssertionError(f"density checks failed: {bad}")
+    return keep, launches
+
+
+def conv_cpu_rerun(ys):
+    """The first trials' central filters at ``CONV_CPU_NS`` on CPU tensors
+    (K1's plain version); run in a worker.  Returns nell by N."""
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = {N: conv_filter(N, "central", torch.as_tensor(ys), eigh_impl="fused")[2].numpy()
+           for N in CONV_CPU_NS}
+    return out, time.perf_counter() - t0
+
+
+def density_cpu_rerun(inputs, xs_grid):
+    """The first trials' densities on the CPU from the card's inputs, and
+    each density's sensitivity: its largest change, over its peak, when
+    every input moment moves by one ulp (fixed random signs); run in a
+    worker.  Returns (densities, sensitivities) by N and approximation."""
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    xs_grid = torch.as_tensor(xs_grid)
+    out = {}
+    for N, inp in inputs.items():
+        cms, mean = torch.as_tensor(inp["cms"]), torch.as_tensor(inp["mean"])
+        signs = torch.as_tensor(np.random.RandomState(N).choice([-1.0, 1.0], cms.shape))
+        moved = cms * (1 + signs * np.finfo(np.float64).eps)
+        out[N] = {}
+        for name in DENSITY_METHODS + ("saddle_point_start",):
+            pdf = density_approximations(cms, mean, xs_grid, name)
+            alt = density_approximations(moved, mean, xs_grid, name)
+            sens = ((alt - pdf).abs().amax(-1) / pdf.abs().amax(-1)).numpy()
+            out[N][name] = (pdf.numpy(), sens)
+    return out, time.perf_counter() - t0
+
+
+def start_conv_cpu_reference(pool, data, density_keep, xs_grid):
+    inputs = {N: {k: density_keep[N][k] for k in ("cms", "mean")} for N in DENSITY_NS}
+    return dict(
+        conv=pool.apply_async(conv_cpu_rerun, (data["ys"][:, :CONV_CPU_TRIALS].cpu().numpy(),)),
+        density=pool.apply_async(density_cpu_rerun, (inputs, xs_grid.cpu().numpy())))
+
+
+def phase_conv_cpu_reference(pending, central, density_keep):
+    """The CPU re-runs against the card: the OU central filters' nell within
+    rtol 1e-6 (the 1D kernel-vs-plain bound) on the trials finite in both;
+    each density within 1e-9 of its peak where it is well conditioned (a
+    one-ulp move of its moments changes it by at most 1e-10 of its peak,
+    on the CPU).  Ill-conditioned densities are counted and their gaps
+    reported: the saddle point's 50 clipped Newton steps are chaotic
+    almost everywhere, so its arithmetic is held at the Newton start
+    ("saddle_point_start"), and Gram–Charlier at N=15 loses its digits
+    to cancellation in the cumulants of order up to 29."""
+    nells, conv_s = pending["conv"].get()
+    bad, conv_rows = [], {}
+    for N in CONV_CPU_NS:
+        card = central[N]["nell"][:CONV_CPU_TRIALS].cpu().numpy()
+        both = np.isfinite(card) & np.isfinite(nells[N])
+        rel = float((np.abs(card - nells[N]) / np.abs(nells[N]))[both].max())
+        conv_rows[N] = dict(finite_in_both=int(both.sum()), max_rel_gap=rel)
+        if not (both.sum() == CONV_CPU_TRIALS and rel <= CONV_JACOBI_RTOL):
+            bad.append(f"conv N={N}")
+    cpu, density_s = pending["density"].get()
+    density_rows = {}
+    for N in DENSITY_NS:
+        rows = {}
+        for name, (ref, sens) in cpu[N].items():
+            gap = np.abs(density_keep[N][name] - ref).max(-1) / np.abs(ref).max(-1)
+            ok = sens <= 1e-10
+            rows[name] = dict(
+                well_conditioned=int(ok.sum()), densities=int(ok.size),
+                max_gap_over_peak=float(gap[ok].max()) if ok.any() else None,
+                max_gap_over_peak_ill=float(gap[~ok].max()) if (~ok).any() else None,
+                median_sensitivity=float(np.median(sens)))
+            if ok.any() and not gap[ok].max() <= DENSITY_CPU_RTOL:
+                bad.append(f"density N={N} {name}")
+        density_rows[N] = rows
+    emit("conv_cpu_reference", conv_trials=CONV_CPU_TRIALS, conv=conv_rows,
+         conv_cpu_seconds=conv_s, density_trials=DENSITY_CPU_TRIALS, density=density_rows,
+         density_cpu_seconds=density_s)
+    if bad:
+        raise AssertionError(f"the card's convergence/density runs disagree with the CPU: {bad}")
+
 def main():
     smi = phase_device()
     from mfs_tpu_torch.models.one_dim import benes_bernoulli
     from mfs_tpu_torch.sde.transitions import sde_cond_moments_tme_normal
 
     phase_build()
+    phase_eigh_batch_limit()
     xss, yss = phase_nd_data()
     model = benes_bernoulli(N=N)
     trans = sde_cond_moments_tme_normal(model.drift, model.dispersion, model.dt, 2, N)
@@ -1945,12 +2442,21 @@ def main():
     pf = phase_fig4_pf(fig4_ys, zs, smi)
     scoring_launches = phase_fig4_scores(pss, xs_grid, zs, moment, ghf, pf, smi)
     fig4_rows = phase_fig4_k1_timing(moment, zs)
+    conv = phase_conv_data(smi)
+    central, conv_launches = phase_conv_moment(conv, smi)
+    phase_conv_jacobi(conv, central, smi)
+    phase_conv_taylor(conv, central, smi)
+    phase_conv_pf(conv, smi)
+    phase_conv_pcrlb(conv, smi)
+    density_keep, density_launches = phase_density(pss, xs_grid, moment, smi)
+    conv_row = k1_timing(central[15]["ms10"], central[15]["mean10"], zs)
     # Then the checks, while the CPU references run in worker processes.
     with multiprocessing.get_context("spawn").Pool(6) as pool:  # terminated on exit
         fig4_pending = start_fig4_cpu_reference(pool, fig4_ys)
         mle_pending = pool.apply_async(
             mle_cpu_rerun, (mle_ys[:, :MLE_CPU_TRIALS].cpu().numpy(), 1))
         pending = start_nd_cpu_reference(pool, yss)
+        conv_pending = start_conv_cpu_reference(pool, conv, density_keep, xs_grid)
         phase_kernel_vs_plain()
         phase_k1_grad_vs_plain()
         phase_rescue_tiers(model, trans, ys, tier0_out)
@@ -1960,26 +2466,34 @@ def main():
         phase_nd_cpu_reference(outs, pending)
         phase_mle_cpu_reference(mle_grad, trace_p, mle_pending)
         phase_fig4_cpu_reference(fig4_pending, pss, moment, ghf)
+        phase_conv_cpu_reference(conv_pending, central, density_keep)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # K1's times at the main path's batch, each batch's in "by_batch": the
     # main path (n=15, B=4096), a rescue bucket (B=512), the MLE path
     # (n=4, B=1000) with its launches (mle_grad's 2T + mle's) and the
     # gradient's times, and Fig 4's filter (n=8, B=1000: the N=8 pass's
-    # launches) and scoring (n=15, B=100,000: the N=15 row's launch).
-    # "launches" adds every Fig-4 launch (the five passes and scorings) to
-    # the 1D main path's.
+    # launches) and scoring (n=15, B=100,000: the N=15 row's launch), and
+    # the convergence study's central N=15 filter (n=15, B=10,000: its
+    # pass's launches).  "launches" adds every Fig-4 launch (the five
+    # passes and scorings), the convergence study's (28 passes) and the
+    # density recovery's (a characteristic function an N) to the 1D main
+    # path's.
     mle_row.update(launches=2 * MLE_T + mle_launches)
     fig4_rows[0].update(launches=moment[8]["launches"])
     fig4_rows[1].update(launches=scoring_launches[15])
+    conv_row.update(launches=2 * T)
     fig4_launches = sum(m["launches"] for m in moment.values()) + sum(scoring_launches.values())
     k1 = {"name": "quadrature_1d", "route": "cuda",
           "source": "mfs_tpu_torch/csrc/quadrature_1d.cu",
-          "replaces": "mfs_tpu/ops/pallas_quadrature.py:95", "launches": launches + fig4_launches,
+          "replaces": "mfs_tpu/ops/pallas_quadrature.py:95",
+          "launches": launches + fig4_launches + conv_launches + density_launches,
           **{k: timing[0][k] for k in keys}, "library_ms": None,
           "by_batch": [{k: row[k] for k in ("n", "B") + keys} for row in timing]
           + [{k: mle_row[k] for k in ("n", "B") + keys + ("launches", "grad_ms", "grad_lu_ms")}]
           + [{k: row[k] for k in ("n", "B") + keys + ("launches",)} for row in fig4_rows[:1]]
           + [{k: fig4_rows[1][k] for k in ("n", "B") + keys + (
+              "launches", "max_abs_err_cf", "trials_beyond_1e_9")}]
+          + [{k: conv_row[k] for k in ("n", "B") + keys + (
               "launches", "max_abs_err_cf", "trials_beyond_1e_9")}]}
     # Each ND kernel's launches over every ND pass; its times and bound at
     # the largest basis it ran on (K2: N=3; the pair: N=11), each pass's

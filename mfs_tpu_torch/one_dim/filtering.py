@@ -11,14 +11,15 @@ Port of ``mfs_tpu/one_dim/filtering.py``.  Per time step:
 Batch-first: carries may have leading trial axes — ``cms0 (..., 2N)``,
 ``ys (T, ...)`` — and a Python loop over time replaces ``lax.scan``.
 With ``eigh_impl="auto"`` (or ``"fused"``) every quadrature of a CUDA
-run goes through the hand-written kernel.
+run goes through the hand-written kernel.  ``moment_filter_taylor``
+replaces the quadratures by Taylor expansions around the running mean.
 """
 import warnings
 from typing import Any, Callable, Tuple
 
 import torch
 
-from mfs_tpu_torch.one_dim.quadrature import moment_quadrature
+from mfs_tpu_torch.one_dim.quadrature import moment_quadrature, taylor_quadrature
 from mfs_tpu_torch.typings import Array, FloatScalar
 
 
@@ -176,3 +177,51 @@ def moment_filter_scms(
         means.append(mean)
         scales.append(scale)
     return torch.stack(scmss), torch.stack(means), torch.stack(scales), nell
+
+
+def moment_filter_taylor(
+    state_cond_central_moments: Callable[[Array, Array], Array],
+    state_cond_mean: Callable[[Array], Array],
+    measurement_cond_pdf: Callable[[Any, Array], Array],
+    cms0: Array,
+    mean0: FloatScalar,
+    ys: Array,
+    taylor_order: int = None,
+) -> Tuple[Array, Array, Array]:
+    r"""Quadrature-free moment filter: every expectation by the Taylor rule
+    ``E[f(X)] ≈ Σ_r f^{(r)}(mean) cms[r] / r!`` (``taylor_quadrature``).
+
+    Parameters mirror ``moment_filter_cms``; the model callables must be
+    differentiable in the node argument and elementwise in it.  Batch-first:
+    ``cms0 (..., 2N)``, ``ys (T, ...)``.  ``taylor_order`` defaults to
+    ``2N - 1``.
+
+    Returns ``cmss (T, ..., 2N)``, ``means (T, ...)``, ``nell (...)``.
+    """
+    num_moments = cms0.shape[-1]
+    _check_even(num_moments)
+    order = taylor_order if taylor_order is not None else num_moments - 1
+
+    cms = cms0
+    mean = _batch_constant(mean0, cms0)
+    nell = torch.zeros(cms0.shape[:-1], dtype=cms0.dtype, device=cms0.device)
+    cmss, means = [], []
+    for y in ys:
+        # Prediction: E[g(X)] by Taylor with the current central moments.
+        new_mean = taylor_quadrature(state_cond_mean, cms, mean, order)
+        cms_p = taylor_quadrature(
+            lambda u: state_cond_central_moments(u, new_mean), cms, mean, order
+        )
+        mean = new_mean
+
+        # Update: unnormalised posterior moments by Taylor.
+        like = lambda u: measurement_cond_pdf(y, u)
+        pdf_y = taylor_quadrature(like, cms_p, mean, order)
+        mean_u = taylor_quadrature(lambda u: u * like(u), cms_p, mean, order) / pdf_y
+        centred = lambda u: _monomials(u - mean_u, num_moments) * like(u)[..., None]
+        cms = taylor_quadrature(centred, cms_p, mean, order) / pdf_y[..., None]
+        mean = mean_u
+        nell = nell - torch.log(pdf_y)
+        cmss.append(cms)
+        means.append(mean)
+    return torch.stack(cmss), torch.stack(means), nell

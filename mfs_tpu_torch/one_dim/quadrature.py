@@ -10,10 +10,18 @@ them.  Two routes, chosen by ``eigh_impl``:
 
       gather Hankel pair G, H  →  R = chol(G)  →  K = R^{-1} H R^{-T}
       →  eigh(K)  →  weights = (first eigenvector components)^2,
-                     nodes   = scale * eigenvalues + mean.
+                     nodes   = scale * eigenvalues + mean;
+
+- ``"jacobi"``: the same pipeline with the in-repo cyclic Jacobi solver
+  (``ops/eigh.py::eigh_batched``, plain torch).
+
+Also the textbook Golub–Welsch rule and the Taylor-expansion rule of the
+quadrature-free filter (``taylor_quadrature``), whose derivative towers
+are nested forward-mode products (``torch.func``).
 """
 import functools
-from typing import Tuple
+import math
+from typing import Any, Callable, Tuple
 
 import numpy as np
 import torch
@@ -109,3 +117,88 @@ def moment_quadrature(
     scale = torch.as_tensor(scale, dtype=DTYPE, device=ms.device)
     nodes = scale[..., None] * vals + mean[..., None]
     return weights, nodes
+
+
+def gauss_quadrature_golub_welsch(
+    ms: Array,
+    mean: FloatScalar = 0.0,
+    scale: FloatScalar = 1.0,
+    sort_nodes: bool = False,
+) -> Tuple[Array, Array]:
+    """Textbook Golub–Welsch: the tridiagonal Jacobi matrix from ratios of
+    the Gram matrix's Cholesky factor, decomposed by ``eigh_batched``.
+    Batched like ``moment_quadrature``; from ``2n`` moments it returns an
+    ``(n - 1)``-point rule, as the JAX function does."""
+    n = ms.shape[-1] // 2
+    g_inds, _ = hankel_indices(n, ms.device)
+    Rt = _cholesky_or_nan(ms[..., g_inds]).mT  # upper triangular
+
+    diag = torch.diagonal(Rt, dim1=-2, dim2=-1)  # (..., n)
+    sup = torch.diagonal(Rt, offset=1, dim1=-2, dim2=-1)  # (..., n-1)
+    betas = diag[..., 1:-1] / diag[..., :-2]
+    alpha0 = Rt[..., 0, 1] / Rt[..., 0, 0]
+    alphas_rest = sup[..., 1:] / diag[..., 1:-1] - sup[..., :-1] / diag[..., :-2]
+    alphas = torch.cat([alpha0[..., None], alphas_rest], dim=-1)
+    K = torch.diag_embed(alphas) + torch.diag_embed(betas, 1) + torch.diag_embed(betas, -1)
+
+    vals, vecs = eigh_batched(K, sort=sort_nodes)
+    weights = vecs[..., 0, :] ** 2
+    mean = torch.as_tensor(mean, dtype=DTYPE, device=ms.device)
+    scale = torch.as_tensor(scale, dtype=DTYPE, device=ms.device)
+    return weights, scale[..., None] * vals + mean[..., None]
+
+
+def make_derivatives(f: Callable, order: int, argnum: int = 0):
+    """``[f, f', ..., f^{(order)}]`` with respect to argument ``argnum``,
+    by forward-mode Jacobians (``torch.func.jacfwd``), so vector-valued
+    integrands work too.  For the batched tower of the filters see
+    ``make_derivatives_elementwise``."""
+    derivatives = [f]
+    for _ in range(order):
+        derivatives.append(
+            (lambda g: lambda x, *args: torch.func.jacfwd(g, argnums=argnum)(x, *args))(
+                derivatives[-1]
+            )
+        )
+    return derivatives
+
+
+def make_derivatives_elementwise(f: Callable, order: int):
+    """Derivative tower ``[f, f', ..., f^{(order)}]`` of an *elementwise*
+    f (possibly with extra trailing output axes): each derivative is a
+    forward-mode product along ``ones_like(x)`` (``torch.func.jvp``),
+    which for such an f IS the elementwise derivative.  No (B, B)
+    Jacobian is formed, so the tower batches over leading axes."""
+    derivatives = [f]
+    for _ in range(order):
+        derivatives.append(
+            (
+                lambda g: lambda x, *args: torch.func.jvp(
+                    lambda u: g(u, *args), (x,), (torch.ones_like(x),)
+                )[1]
+            )(derivatives[-1])
+        )
+    return derivatives
+
+
+def taylor_quadrature(
+    f: Callable[..., FloatScalar],
+    cms: Array,
+    mean: FloatScalar,
+    order: int,
+    *operands: Any,
+) -> Array:
+    """E[f(X)] by Taylor expansion around the mean with central moments:
+    ``f(m) + Σ_r f^{(r)}(m) cms[..., r] / r!``.  ``cms (..., 2N)`` and
+    ``mean (...)`` may carry leading trial axes; ``f`` must be elementwise
+    in its first argument, and extra trailing output axes broadcast."""
+    # contiguous: forward-mode AD takes no primal whose entries share memory
+    mean = torch.as_tensor(mean, dtype=DTYPE, device=cms.device).contiguous()
+    derivatives = make_derivatives_elementwise(f, order)
+    result = derivatives[0](mean, *operands)
+    for r in range(1, order + 1):
+        coeff = cms[..., r] / float(math.factorial(r))
+        d_r = derivatives[r](mean, *operands)
+        coeff = coeff.reshape(coeff.shape + (1,) * (d_r.ndim - coeff.ndim))
+        result = result + d_r * coeff
+    return result

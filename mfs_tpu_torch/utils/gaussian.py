@@ -33,6 +33,26 @@ def normal_raw_moments_all(mean, variance, num_moments: int) -> Array:
     return torch.stack(ms[:num_moments], dim=-1)
 
 
+def raw_moment_of_standard_normal(p: int) -> float:
+    """E[X^p] for X ~ N(0, 1): (p-1)!! for even p, 0 for odd p."""
+    if p % 2 == 1:
+        return 0.0
+    return math.factorial(p) / (2 ** (p // 2) * math.factorial(p // 2))
+
+
+def raw_moment_of_normal(mean, variance, p: int) -> Array:
+    """E[X^p] for X ~ N(mean, variance), single static order p; as for
+    ``normal_raw_moments_all``, one of mean and variance is a tensor."""
+    return normal_raw_moments_all(mean, variance, p + 1)[..., p]
+
+
+def central_moment_of_normal(variance, p: int):
+    """p-th central moment of a Normal: variance^{p/2} (p-1)!! (even p)."""
+    if p % 2 == 1:
+        return 0.0
+    return torch.sqrt(torch.as_tensor(variance, dtype=DTYPE)) ** p * raw_moment_of_standard_normal(p)
+
+
 class GaussianSum1D(NamedTuple):
     """A 1D Gaussian mixture with precomputed moments up to order 2N-1."""
 

@@ -640,3 +640,80 @@ def test_generator_on_another_device_raises(cuda):
                          torch.ones((5, 3), dtype=torch.float64, device=cuda),
                          lambda gg, n: torch.zeros((3, n), dtype=torch.float64, device=cuda),
                          g, 10, stratified)
+
+
+def test_f64_eigh_takes_100000_matrices_in_one_call(cuda, monkeypatch):
+    """``eigh_xla`` on 100,000 15 x 15 matrices (cuSOLVER's batched eigh
+    rejects more than 16,384 a call): the same eigenvalues as 4,096-matrix
+    chunks (rtol 1e-12 of each matrix's scale), residual ‖AV − VΛ‖ below
+    1e-12 of it, nothing masked."""
+    from mfs_tpu_torch.ops import eigh as te
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(100_000, 15, 15, generator=g, dtype=torch.float64, device=cuda)
+    a = a + a.mT
+    before = te.NONCONVERGED
+    vals, vecs = te.eigh_xla(a)
+    monkeypatch.setattr(te, "EIGH_CHUNK", 4096)
+    vals_c, _ = te.eigh_xla(a)
+    scale = a.abs().amax((-1, -2))
+    assert te.NONCONVERGED == before and bool(torch.isfinite(vals).all())
+    assert ((vals - vals_c).abs().amax(-1) <= 1e-12 * scale).all()
+    assert ((a @ vecs - vecs * vals[:, None, :]).abs().amax((-1, -2)) <= 1e-12 * scale).all()
+
+
+@pytest.mark.parametrize("n", [8, 15, 32])
+def test_jacobi_eigh_on_card_matches_cusolver(cuda, n):
+    """``eigh_batched`` (plain torch on the card) against
+    ``torch.linalg.eigh``: sorted eigenvalues within 1e-12 of each
+    matrix's scale, residual and ‖VᵀV − I‖ below 1e-12 (of it); the
+    backward runs on the card."""
+    from mfs_tpu_torch.ops.eigh import eigh_batched
+    g = torch.Generator(device=cuda).manual_seed(n)
+    a = torch.randn(513, n, n, generator=g, dtype=torch.float64, device=cuda)
+    a = (a + a.mT).requires_grad_(True)
+    vals, vecs = eigh_batched(a, sort=True)
+    ref = torch.linalg.eigh(a.detach())[0]
+    scale = a.detach().abs().amax((-1, -2))
+    assert ((vals - ref).abs().amax(-1) <= 1e-12 * scale).all()
+    assert ((a @ vecs - vecs * vals[:, None, :]).abs().amax((-1, -2)) <= 1e-12 * scale).all()
+    eye = torch.eye(n, dtype=torch.float64, device=cuda)
+    assert (vecs.mT @ vecs - eye).abs().max().item() <= 1e-12
+    (grad,) = torch.autograd.grad(vals.sum(), a)
+    # d(trace)/dA = I
+    assert (grad - eye).abs().max().item() <= 1e-10
+
+
+def test_densities_on_card_match_cpu(cuda):
+    """``characteristic_fn`` (K1 on the card, its plain version on the
+    CPU), ``gram_charlier`` and ``saddle_point`` on cuda tensors against
+    the same calls on CPU tensors, on N=8 central mixture moments: the
+    CF atol 1e-12 (the rules agree as measures); Gram–Charlier and the
+    saddle point at its Newton start (``newton_iters=0``) rtol 1e-10 of
+    each density's peak.  After 50 clipped Newton steps the saddle point
+    is chaotic in the tails (a one-ulp change moves it), so there it is
+    only held finite on the card."""
+    from mfs_tpu_torch.one_dim.moments import characteristic_fn, sms_to_cumulants
+    from mfs_tpu_torch.one_dim.pdf_approximations import gram_charlier, saddle_point
+    N = 8
+    cms = _central_mixture(N, 64, 3, "cpu")
+    mean = torch.linspace(-0.5, 0.5, 64, dtype=torch.float64)
+    scale = torch.sqrt(cms[:, 2])
+    sms = cms / scale[:, None] ** torch.arange(2 * N)
+    xs = torch.linspace(-4.0, 4.0, 801, dtype=torch.float64)
+    zs = torch.linspace(-8.0, 8.0, 161, dtype=torch.float64)
+    out = {}
+    for dev in ("cpu", cuda):
+        c, m, s, sm, x, z = (t.to(dev) for t in (cms, mean, scale, sms, xs, zs))
+        before = qk.LAUNCHES
+        cf = characteristic_fn(z, c, m)
+        launched = qk.LAUNCHES - before
+        gc = gram_charlier(sms_to_cumulants(sm, m, s))(x)
+        sp0 = saddle_point(sm, m, s, newton_iters=0)(x)
+        sp = saddle_point(sm, m, s)(x)
+        out[str(dev)] = [t.cpu() for t in (cf, gc, sp0, sp)] + [launched]
+    assert out["cuda"][4] == 1 and out["cpu"][4] == 0
+    assert bool(torch.isfinite(out["cuda"][3]).all())
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() <= 1e-12
+    for card, host in zip(out["cuda"][1:3], out["cpu"][1:3]):
+        peak = host.abs().amax(-1, keepdim=True)
+        assert ((card - host).abs() <= 1e-10 * peak).all()

@@ -134,10 +134,19 @@ _EXPORTS = {
     "models": ["benes_bernoulli", "well_poisson", "lotka_volterra_3d", "prey_predator",
                "satellite_orbital_stability"],
     "ops": ["eigh_batched", "eigh_xla", "eigh_refined"],
-    "one_dim": ["hankel_indices", "moment_quadrature", "moment_filter_rms", "moment_filter_cms",
-                "moment_filter_scms"],
-    "utils": ["normal_raw_moments_all", "GaussianSum1D", "GaussianSumND", "ldl", "ldl_chol",
-              "simulate_sde", "simulate_sde_ensemble", "discretise_lti_sde"],
+    "one_dim": ["hankel_indices", "moment_quadrature", "gauss_quadrature_golub_welsch",
+                "taylor_quadrature", "make_derivatives", "raw_to_central", "central_to_raw",
+                "raw_to_scaled", "scaled_to_central", "sms_to_cumulants", "characteristic_fn",
+                "characteristic_from_pdf", "moment_filter_rms", "moment_filter_cms",
+                "moment_filter_scms", "moment_filter_taylor", "gram_charlier", "edgeworth",
+                "legendre_poly_expansion", "truncated_cumulant_generating_function",
+                "saddle_point", "inverse_fourier"],
+    "utils": ["gamma", "factorial", "binom", "vmap_list_of_funcs", "partial_bell",
+              "complete_bell", "hermite_probabilist", "hermite_probabilist_all", "pascal_lower",
+              "normal_raw_moments_all", "raw_moment_of_normal", "raw_moment_of_standard_normal",
+              "central_moment_of_normal", "GaussianSum1D", "GaussianSumND", "ldl", "ldl_chol",
+              "simulate_sde", "simulate_sde_ensemble", "discretise_lti_sde",
+              "posterior_cramer_rao"],
     "filters": ["SigmaPoints", "rk4_m_cov", "rk4_m_cov_backward", "gaussian_expectation", "kf",
                 "rts", "ekf", "eks", "cd_ekf", "cd_eks", "sgp_filter", "sgp_smoother",
                 "cd_sgp_filter", "cd_sgp_smoother", "bootstrap_filter", "particle_filter",

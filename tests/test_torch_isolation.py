@@ -39,6 +39,10 @@ def _forbidden(name):
 def test_port_imports_neither_jax_nor_mfs_tpu():
     files = _port_files()
     assert len(files) > 10 and all(f.exists() for f in files)
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"mfs_tpu_torch/utils/combinatorics.py", "mfs_tpu_torch/one_dim/moments.py",
+            "mfs_tpu_torch/one_dim/pdf_approximations.py",
+            "mfs_tpu_torch/utils/pcrlb.py"} <= names
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert not bad, bad

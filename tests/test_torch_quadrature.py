@@ -126,8 +126,9 @@ def test_moment_quadrature_routes():
     wr, xr = moment_quadrature(ms, eigh_impl="refined")
     assert torch.equal(xa, xr)
     np.testing.assert_allclose(np.sort(xf.numpy(), -1), xr.numpy(), atol=1e-12)
-    with pytest.raises(NotImplementedError, match="E3"):
-        moment_quadrature(ms, eigh_impl="jacobi")
+    wj, xj = moment_quadrature(ms, eigh_impl="jacobi", sort_nodes=True)  # the in-repo solver
+    np.testing.assert_allclose(xj.numpy(), xr.numpy(), atol=1e-12)
+    np.testing.assert_allclose(wj.numpy(), wr.numpy(), rtol=1e-10)
     with pytest.raises(ValueError):
         moment_quadrature(ms, eigh_impl="nope")
     g, h = hankel_indices(3, device="cpu")
