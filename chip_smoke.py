@@ -18,6 +18,12 @@ plain PyTorch version:
   one batched gradient through K1's forward and its implicit-function
   backward, and ``lbfgs_batched`` steps at full width, with 8 trials
   re-run on the CPU through the plain version in a worker process;
+- trial sharding, FLOP accounting and profiling: the 1D main path's
+  tier 0 through ``run_ensemble_filter`` and the MLE gradient through
+  ``sharded_nell_grad`` on a one-rank NCCL mesh, each held against its
+  unsharded result; ``count_flops`` of a main-path pass and of two ND
+  steps at N=3 and N=7, each kernel's count held to its launches; and
+  ``timed`` and ``trace`` around the main path;
 - Fig 4: the paper's method comparison on 1,000 Beneš–Bernoulli trials
   (``experiments/method_comparison.py``, ``compute_errors.py``): the
   grid truth, K1's moment filter at N = 3, 5, 8, 11, 15 (TME-3,
@@ -44,16 +50,21 @@ and exits non-zero.  The line before the last lists the kernels, the
 last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU and ``nvcc``
 (``/usr/local/cuda/bin`` or on ``PATH``); imports nothing of JAX.
 """
+import contextlib
 import json
 import math
 import multiprocessing
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from mfs_tpu_torch.ops.flops import k1_flops, k2_flops, ksolve_flops, ldl_flops
 
 N = 15
 T = 100
@@ -106,25 +117,6 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def k1_flops(n):
-    """FP64 operations K1 does per trial at order n, counted from
-    ``csrc/quadrature_1d.cu`` (add, sub, mul, div, sqrt one each; no
-    iteration depends on the data).  Returns (operations, divisions)."""
-    equil = 2 * n + (n - 1)                                  # sqrt, 1/x, ratios
-    ldl = sum((n - j) * (3 * j + 2) + (n - j - 1) for j in range(n))
-    gw = 2 * (n - 1) + 3 * (n - 1)
-    back = 2 * n * (n - 1) // 2 + n + 1
-    qform = 3 * n * (n + 1) // 2 + n * (n - 1) // 2
-    gersh = 6 * n + 4
-    sturm = 1 + 3 * (n - 1)
-    bisect = n * 32 * (2 + sturm)
-    newton = n * 8 * (8 * n + 2)
-    weights = n * (2 + 7 * (n - 1) + 1 + 2)
-    ops = equil + ldl + gw + back + qform + gersh + bisect + newton + weights
-    divs = (2 * n - 1) + n * (n - 1) // 2 + (n - 1) + 1 + n * 32 * (n - 1) + n * 8 + n * n
-    return ops, divs
 
 
 def mixture_moments(n, B, rng, regime, device):
@@ -589,46 +581,6 @@ ND_FINITE_MIN = {7: 0.53, 3: 0.96, 11: 1.0}
 # the rules' moment reproduction, not by their factors.
 ILL_CONDITIONED = 1e-2
 EPS = 2.2e-16
-
-
-def ldl_flops(s):
-    """FP64 operations the equilibrated LDL needs per trial (add, sub,
-    mul, div, sqrt one each; nothing depends on the data): c_j = 1/sqrt(G_jj),
-    the lower triangle of G' (2 an entry), and for column j the products
-    v_k = L_jk d_k (k < j), the pivot (2j + its guard and scale), and
-    each row below it (2j + the division).  nd_ldl does this work: it
-    forms each v once a column and updates each entry once from it."""
-    equil = 2 * s + s * (s + 1)
-    return equil + sum(j + 2 * j + 3 + (s - 1 - j) * (2 * j + 1) for j in range(s))
-
-
-def ksolve_flops(s, d):
-    """FP64 operations the d operators K_m = S^-1 Lu^-1 H'_m Lu^-T S^-1
-    need per trial, given the factor: the H'_m gather (2 an entry); the
-    whole first unit solve W = Lu^-1 H'_m (an FMA per k < i in each of s
-    columns); the second, Y = W Lu^-T, only on the lower triangle, since
-    Y is symmetric (entry (i, j <= i) needs j FMAs); the scaling and the
-    symmetrisation of the s(s+1)/2 entries kept (2 each).  nd_ksolve
-    solves for the whole Y and symmetrises every entry: that extra work
-    is the kernel's, not the function's, and is not counted."""
-    first = s * s * (s - 1)
-    second = (s - 1) * s * (s + 1) // 3
-    return d * (2 * s * s + first + second + 2 * s * (s + 1))
-
-
-def k2_flops(s, d, sweeps):
-    """FP64 operations K2 does on one trial whose d Jacobi runs took
-    ``sweeps`` (a list of d counts), from ``csrc/quadrature_nd.cu::
-    nd_eigh_kernel``: the LDL once per trial, the solves, symmetrisation
-    and sweeps once per dimension."""
-    equil = 2 * s
-    ldl = sum((s - j) * (2 + 3 * j) + 2 + (s - 1 - j) for j in range(s))
-    solves = s * sum(3 * r + 3 for r in range(s)) + s * sum(3 * r + 1 for r in range(s))
-    sym = s * (s - 1)
-    check = 3 * s * s
-    sweep = check + s * (s - 1) // 2 * (14 + 18 * s)
-    jacobi = sum(n * sweep + check for n in sweeps)
-    return equil + ldl + d * (solves + sym) + jacobi
 
 
 def nd_mixture_moments(N, d, B, rng, device):
@@ -1143,9 +1095,10 @@ MLE_T = 1000
 MLE_TRUE = 3.0  # the true (p1, p2) = (3, 3)
 MLE_SUBSTEPS = 1  # TME-3 sub-steps per observation in the simulation (JAX: 20)
 # 10 L-BFGS steps took 247.6 s (125 objective evaluations) in a run of
-# this script on an NVIDIA H100 80GB HBM3 at 700 W, past the ~240 s this
-# phase may take; its first 8 steps made 95 of those evaluations.
-MLE_STEPS = 8
+# this script on an NVIDIA H100 80GB HBM3 at 700 W, and 8 steps 207-266 s
+# (95 evaluations); 6 pay for the trial-sharding, FLOP-count and
+# profiling phases.
+MLE_STEPS = 6
 MLE_CPU_TRIALS = 8
 # The CPU re-run follows the card's first MLE_CPU_STEPS steps: one objective
 # evaluation of the plain route takes ~20 s at T=1000 on one CPU core.
@@ -1476,6 +1429,209 @@ def phase_mle_cpu_reference(grad, trace_p, pending):
             and p_rel.max() <= MLE_GRAD_RTOL):
         raise AssertionError("the card's MLE disagrees with the CPU plain route")
 
+
+
+# ---------------------------------------------------------------------------
+# Trial sharding on a one-rank NCCL world, FLOP accounting, profiling
+# ---------------------------------------------------------------------------
+
+ENSEMBLE_RTOL = 1e-12  # sharded against unsharded, as tests/test_parallel.py
+SHARDED_LOSS_RTOL = 1e-12
+SHARDED_GRAD_RTOL = 1e-10
+FLOPS_ND_STEPS = 2
+TRACE_STEPS = 2
+
+
+@contextlib.contextmanager
+def nccl_world():
+    """A one-rank NCCL process group on card 0, rendezvous through a
+    ``FileStore`` in a temporary directory, and the trial mesh over it:
+    yields (mesh, seconds to start both).  The group is destroyed on exit."""
+    import torch.distributed as dist
+    from mfs_tpu_torch.parallel import trial_mesh
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            mesh = trial_mesh(device_type="cuda")
+            yield mesh, time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+
+
+def rtol_violations(a, b, keep, rtol):
+    """(entries of the kept trials where |a - b| > rtol |b|, their largest
+    |a - b| / |b|) for outputs whose trial axis leads."""
+    a, b = a[keep], b[keep]
+    gap = (a - b).abs()
+    rel = (gap / b.abs())[gap > 0]
+    return int((gap > rtol * b.abs()).sum()), rel.max().item() if rel.numel() else 0.0
+
+
+def phase_ensemble(model, trans, ys, tier0_out, mesh, world_s, smi):
+    """``run_ensemble_filter`` on the main path (N=15, T=100, B=4096,
+    TME-2, tier 0 through K1) with the trials sharded over the one-rank
+    NCCL mesh: K1 launches exactly 2T times, the outputs are DTensors
+    sharded on their trial axes, and they equal ``main_path``'s unsharded
+    tier 0 to rtol 1e-12 on the trials finite in both, whose finite masks
+    are equal.  Returns K1's launches."""
+    from torch.distributed.tensor import Shard
+    from mfs_tpu_torch.one_dim.filtering import moment_filter_cms
+    from mfs_tpu_torch.ops import quadrature_kernel as qk
+    from mfs_tpu_torch.parallel import run_ensemble_filter
+    ic = model.init_cond
+
+    def filter_fn(init, y):
+        return moment_filter_cms(trans.cms, trans.mean, model.measurement_cond_pdf, init[0],
+                                 init[1], y, eigh_impl="fused")
+
+    init = (ic.cms.expand(BATCH, 2 * N).contiguous(), ic.mean.expand(BATCH).contiguous())
+    qk.LAUNCHES = 0
+    (cmss, means, nell), wall, peak = on_card(
+        lambda: run_ensemble_filter(filter_fn, init, ys, mesh))
+    launches = qk.LAUNCHES
+    out = {"cms_last": cmss.to_local()[-1], "nell": nell.to_local()}
+    fin, fin0 = finite_mask(out), finite_mask(tier0_out)
+    both = fin & fin0
+    gaps = {k: rtol_violations(out[k], tier0_out[k], both, ENSEMBLE_RTOL) for k in out}
+    placements = [list(x.placements) for x in (cmss, means, nell)]
+    emit("ensemble", N=N, T=T, B=BATCH, backend="nccl", ranks=mesh.size(),
+         world_start_s=world_s, wall_s=wall, trials_per_s=BATCH / wall, peak_mem_added_gb=peak,
+         k1_launches=launches, k1_launches_expected=2 * T,
+         placements=[str(p) for p in placements], finite_frac=fin.double().mean().item(),
+         finite_masks_equal=bool((fin == fin0).all()), finite_in_both=int(both.sum()),
+         beyond_rtol={k: v[0] for k, v in gaps.items()},
+         max_rel_gap={k: v[1] for k, v in gaps.items()}, rtol=ENSEMBLE_RTOL, card=smi)
+    if launches != 2 * T:
+        raise AssertionError(f"K1 launched {launches} times in the sharded pass, expected {2 * T}")
+    if placements != [[Shard(1)], [Shard(1)], [Shard(0)]] or cmss.shape != (T, BATCH, 2 * N):
+        raise AssertionError(f"sharded outputs placed {placements}, shaped {tuple(cmss.shape)}")
+    if not (bool((fin == fin0).all()) and all(v[0] == 0 for v in gaps.values())):
+        raise AssertionError(f"the sharded pass differs from the unsharded tier 0: {gaps}")
+    return launches
+
+
+def phase_sharded_grad(mle_ys, vals, grads, mesh, smi):
+    """``sharded_nell_grad`` of the Well–Poisson objective (``mle_objective``,
+    "fused") at one shared theta = (0.5, 0.5) over the one-rank NCCL mesh,
+    on the trials ``mle_grad`` found finite, against the mean of
+    ``mle_grad``'s per-trial values and gradients at P = 0.5 on the same
+    trials: loss rtol 1e-12, gradient rtol 1e-10; and the all-reduce
+    alone, by CUDA events.  Returns K1's launches (2T: the forward; the
+    backward launches none)."""
+    import torch.distributed as dist
+    from mfs_tpu_torch.ops import quadrature_kernel as qk
+    from mfs_tpu_torch.parallel import sharded_nell_grad
+    finite = torch.isfinite(vals) & torch.isfinite(grads).all(-1)
+    ys = mle_ys[:, finite].contiguous()
+    theta = torch.full((2,), 0.5, dtype=torch.float64, device="cuda")
+
+    def nell_fn(th, y):
+        return mle_objective(y, "fused")(th.expand(y.shape[1], 2))
+
+    qk.LAUNCHES = 0
+    (loss, grad), wall, peak = on_card(lambda: sharded_nell_grad(nell_fn, theta, ys, mesh))
+    launches = qk.LAUNCHES
+    ref_loss, ref_grad = vals[finite].mean(), grads[finite].mean(0)
+    loss_rel = ((loss - ref_loss).abs() / ref_loss.abs()).item()
+    grad_rel = ((grad - ref_grad).abs() / ref_grad.abs()).max().item()
+    # The one collective: [sum, gradient (2), count], 4 doubles.
+    buf = torch.zeros(4, dtype=torch.float64, device="cuda")
+    allreduce_ms = cuda_ms(lambda: dist.all_reduce(buf, group=mesh.get_group()), reps=20)
+    emit("sharded_grad", N=MLE_N, T=MLE_T, trials=int(finite.sum()), theta=0.5,
+         backend="nccl", ranks=mesh.size(), wall_s=wall, grad_trials_per_s=int(finite.sum()) / wall,
+         allreduce_ms=allreduce_ms, peak_mem_added_gb=peak, k1_launches=launches,
+         k1_launches_expected=2 * MLE_T,
+         loss=loss.item(), grad=grad.tolist(), loss_rel_gap=loss_rel, grad_max_rel_gap=grad_rel,
+         card=smi)
+    if launches != 2 * MLE_T:
+        raise AssertionError(f"K1 launched {launches} times in the sharded gradient")
+    if not (loss_rel <= SHARDED_LOSS_RTOL and grad_rel <= SHARDED_GRAD_RTOL):
+        raise AssertionError(f"sharded gradient against mle_grad's mean: loss {loss_rel}, "
+                             f"gradient {grad_rel}")
+    return launches
+
+
+def phase_flops(model, trans, ys, setups, smi):
+    """``count_flops`` of one main-path tier-0 pass (N=15, T=100, B=4096)
+    and of two ND steps at N=3 (K2) and N=7 (nd_ldl + nd_ksolve): each
+    kernel's breakdown key must equal its launches x B x its per-trial
+    count (K2 at one sweep a dimension, a flagged lower bound).  Returns
+    the launches of each kernel in this phase."""
+    from mfs_tpu_torch.ops import quadrature_kernel as qk
+    from mfs_tpu_torch.ops import quadrature_nd_kernel as ndk
+    from mfs_tpu_torch.ops.flops import count_flops
+    tier0 = make_runners(model, trans)[0]
+    nd_ys = torch.ones((FLOPS_ND_STEPS, ND_B, 1), dtype=torch.float64, device="cuda")
+    passes = [("main_path", N, T, BATCH, lambda: tier0(ys))] + [
+        (f"nd_N{n}", n, FLOPS_ND_STEPS, ND_B, lambda n=n: run_nd_filter(setups[n], nd_ys, "auto"))
+        for n in (3, 7)]
+    counters = {"quadrature_1d": "LAUNCHES", "nd_eigh": "EIGH_LAUNCHES",
+                "nd_ldl": "LDL_LAUNCHES", "nd_ksolve": "KSOLVE_LAUNCHES"}
+    modules = {"quadrature_1d": qk, "nd_eigh": ndk, "nd_ldl": ndk, "nd_ksolve": ndk}
+    total_launches, bad = {k: 0 for k in counters}, []
+    for name, order, steps, B, run in passes:
+        for k, attr in counters.items():
+            setattr(modules[k], attr, 0)
+        r, wall, _ = on_card(lambda: count_flops(run))
+        launches = {k: getattr(modules[k], attr) for k, attr in counters.items()}
+        s = setups[order][1].shape[1] if name != "main_path" else order
+        per_trial = {"quadrature_1d": k1_flops(order)[0], "nd_eigh": k2_flops(s, 2, [1, 1]),
+                     "nd_ldl": ldl_flops(s), "nd_ksolve": ksolve_flops(s, 2)}
+        kernels = {k: r["breakdown"].get(f"kernel[{k}][float64]", 0.0) for k in counters}
+        expected = {k: launches[k] * B * per_trial[k] for k in counters}
+        bad += [f"{name} {k}: {kernels[k]} != {expected[k]}" for k in counters
+                if kernels[k] != expected[k]]
+        bad += [f"{name}: no kernel launched"] if not any(launches.values()) else []
+        for k in counters:
+            total_launches[k] += launches[k]
+        emit("flops", path=name, N=order, steps=steps, B=B, wall_s=wall, total=r["total"],
+             f64=r["f64"], f32=r["f32"], kernels_share=sum(kernels.values()) / r["total"],
+             per_step=r["total"] / steps, per_trial_step=r["total"] / steps / B,
+             launches={k: v for k, v in launches.items() if v},
+             kernel_flops={k: v for k, v in kernels.items() if v},
+             kernel_per_trial={k: per_trial[k] for k in counters if launches[k]},
+             breakdown=r["breakdown"], unknown_primitives=r["unknown_primitives"],
+             lower_bounds=r["lower_bounds"], card=smi)
+    if bad:
+        raise AssertionError(f"count_flops' kernel keys disagree with launches x B x count: {bad}")
+    return total_launches
+
+
+def phase_profiling(model, trans, ys, tier0_out, smi):
+    """``timed`` around the main path's tier-0 pass (reps=2; its outputs
+    must equal ``main_path``'s tier 0) and ``trace`` around two of its
+    steps: the Chrome trace must exist and name K1's kernel (the profiler
+    has kept 3 or 4 of the 4 launches' events).  Returns K1's launches."""
+    from mfs_tpu_torch.ops import quadrature_kernel as qk
+    from mfs_tpu_torch.utils import timed, trace
+    tier0 = make_runners(model, trans)[0]
+    qk.LAUNCHES = 0
+    best, out = timed(tier0, ys, reps=2, warmup=False)
+    same = all(torch.equal(out[k].nan_to_num(), tier0_out[k].nan_to_num()) for k in out)
+    log_dir = ROOT / "chiprun_out" / "profile_trace"
+    t0 = time.perf_counter()
+    with trace(str(log_dir)):
+        tier0(ys[:TRACE_STEPS])
+    trace_s = time.perf_counter() - t0
+    launches = qk.LAUNCHES
+    path = log_dir / "trace.json"
+    events = json.loads(path.read_text())["traceEvents"] if path.exists() else []
+    k1_events = [e for e in events if "quadrature_1d_kernel" in e.get("name", "")
+                 and e.get("cat") == "kernel"]
+    emit("profiling", timed_best_s=best, timed_trials_per_s=BATCH / best, timed_reps=2,
+         timed_equals_tier0=same, trace_steps=TRACE_STEPS, trace_s=trace_s,
+         trace_file=str(path.relative_to(ROOT)), trace_bytes=path.stat().st_size if events else 0,
+         trace_events=len(events), k1_kernel_events=len(k1_events),
+         k1_kernel_us=sum(e.get("dur", 0) for e in k1_events), k1_launches=launches,
+         k1_launches_expected=2 * T * 2 + 2 * TRACE_STEPS, card=smi)
+    if launches != 2 * T * 2 + 2 * TRACE_STEPS or not same:
+        raise AssertionError(f"timed/trace: K1 launched {launches} times; equal to tier 0: {same}")
+    if not k1_events:
+        raise AssertionError(f"the Chrome trace {path} does not name K1's kernel")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2430,7 +2586,12 @@ def main():
     nd_rows = phase_nd_timing(setups, outs)
     phase_nd_profile(setups)
     mle_ys = phase_mle_data()
-    _, mle_grad = phase_mle_grad(mle_ys, smi)
+    mle_vals, mle_grad = phase_mle_grad(mle_ys, smi)
+    with nccl_world() as (mesh, world_s):
+        mesh_launches = phase_ensemble(model, trans, ys, tier0_out, mesh, world_s, smi)
+        mesh_launches += phase_sharded_grad(mle_ys, mle_vals, mle_grad, mesh, smi)
+    flops_launches = phase_flops(model, trans, ys, setups, smi)
+    profiling_launches = phase_profiling(model, trans, ys, tier0_out, smi)
     trace_p, mle_launches = phase_mle(mle_ys, smi)
     phase_mle_profile(mle_ys)
     mle_row = phase_mle_k1_timing(mle_ys)
@@ -2475,9 +2636,10 @@ def main():
     # launches) and scoring (n=15, B=100,000: the N=15 row's launch), and
     # the convergence study's central N=15 filter (n=15, B=10,000: its
     # pass's launches).  "launches" adds every Fig-4 launch (the five
-    # passes and scorings), the convergence study's (28 passes) and the
-    # density recovery's (a characteristic function an N) to the 1D main
-    # path's.
+    # passes and scorings), the convergence study's (28 passes), the
+    # density recovery's (a characteristic function an N), the sharded
+    # pass's and gradient's, the counted pass's and the timed and traced
+    # passes' to the 1D main path's.
     mle_row.update(launches=2 * MLE_T + mle_launches)
     fig4_rows[0].update(launches=moment[8]["launches"])
     fig4_rows[1].update(launches=scoring_launches[15])
@@ -2486,7 +2648,8 @@ def main():
     k1 = {"name": "quadrature_1d", "route": "cuda",
           "source": "mfs_tpu_torch/csrc/quadrature_1d.cu",
           "replaces": "mfs_tpu/ops/pallas_quadrature.py:95",
-          "launches": launches + fig4_launches + conv_launches + density_launches,
+          "launches": launches + fig4_launches + conv_launches + density_launches
+          + mesh_launches + flops_launches["quadrature_1d"] + profiling_launches,
           **{k: timing[0][k] for k in keys}, "library_ms": None,
           "by_batch": [{k: row[k] for k in ("n", "B") + keys} for row in timing]
           + [{k: mle_row[k] for k in ("n", "B") + keys + ("launches", "grad_ms", "grad_lu_ms")}]
@@ -2495,9 +2658,9 @@ def main():
               "launches", "max_abs_err_cf", "trials_beyond_1e_9")}]
           + [{k: conv_row[k] for k in ("n", "B") + keys + (
               "launches", "max_abs_err_cf", "trials_beyond_1e_9")}]}
-    # Each ND kernel's launches over every ND pass; its times and bound at
-    # the largest basis it ran on (K2: N=3; the pair: N=11), each pass's
-    # in "by_order".  The pair also replaces K3 (``_nd_k_kernel``), which
+    # Each ND kernel's launches over every ND pass and the counted steps of
+    # ``flops``; its times and bound at the largest basis it ran on (K2:
+    # N=3; the pair: N=11), each pass's in "by_order".  The pair also replaces K3 (``_nd_k_kernel``), which
     # computes the same K_m in one program on the TPU.
     nd = []
     for name, replaces, also in (
@@ -2512,7 +2675,8 @@ def main():
         top = max(orders, key=lambda N: setups[N][1].shape[1])
         nd.append({"name": "nd_eigh" if name == "K2" else name, "route": "cuda",
                    "source": "mfs_tpu_torch/csrc/quadrature_nd.cu", "replaces": replaces,
-                   "also_replaces": also, "launches": sum(nd_launches[N][name] for N in orders),
+                   "also_replaces": also, "launches": sum(nd_launches[N][name] for N in orders)
+                   + flops_launches["nd_eigh" if name == "K2" else name],
                    **{k: nd_rows[name, top][k] for k in keys}, "library_ms": None,
                    "by_order": [{"N": N, "s": setups[N][1].shape[1],
                                  "launches": nd_launches[N][name],

@@ -101,6 +101,15 @@ def lbfgs_batched(
         ``grad_inf_norm (B,)``, ``segments_run`` int, ``wall_s`` (the
         steps only, not the first evaluation).
     """
+    return _minimise(batched_nell, init_params, history, max_steps, chunk_steps, gtol,
+                     max_backtracks, c1, callback)
+
+
+def _minimise(batched_nell, init_params, history, max_steps, chunk_steps, gtol,
+              max_backtracks, c1, callback, ptol=None):
+    """``lbfgs_batched``'s iteration; with ``ptol`` a trial also stops once
+    its step's largest parameter change is at most ``ptol``
+    (``fit_mle_batched``'s second tolerance)."""
     P = torch.as_tensor(init_params).detach()
     B, p = P.shape
     m = history
@@ -160,6 +169,8 @@ def lbfgs_batched(
 
         gnorm = gnew.abs().amax(-1)
         finished = (gnorm < gtol) | ~accepted | ~torch.isfinite(fnew)
+        if ptol is not None:
+            finished = finished | (s.abs().amax(-1) <= ptol)
 
         keep = lambda old, new: torch.where(done[:, None] if new.ndim == 2 else done, old, new)
         keep_hist = lambda old, new: torch.where(

@@ -11,13 +11,15 @@ backward); these routines optimise model parameters with either
   loop is an optax transform in a jitted scan.
 
 Many independent problems at once (one per Monte-Carlo trial) go to
-``lbfgs_batched``.
+``lbfgs_batched`` (a batch-first objective) or ``fit_mle_batched`` (a
+per-trial objective, batched by ``torch.func.vmap``).
 """
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from mfs_tpu_torch.estimation.lbfgs_batched import _minimise
 from mfs_tpu_torch.typings import Array
 
 
@@ -113,3 +115,63 @@ def fit_mle_optax(
 
     losses = [opt.step(closure).detach() for _ in range(num_steps)]
     return params.detach(), torch.stack(losses)
+
+
+def fit_mle_batched(
+    per_trial_nell: Callable[[Array, Any], Array],
+    init_params: Array,
+    data: Any,
+    optimiser: Any = None,
+    max_steps: int = 200,
+    chunk_steps: int = 10,
+    gtol: float = 1e-5,
+    ptol: float = 0.0,
+) -> Tuple[Array, dict]:
+    """Per-trial L-BFGS over a batch of independent MLE problems.
+
+    Each trial gets its own quasi-Newton iteration (curvature pairs,
+    direction and line search), run for all trials in lockstep, as in
+    the JAX package, where ``jax.vmap`` runs one optax L-BFGS per trial.
+    Here the iteration is ``lbfgs_batched``'s: its two-loop recursion
+    already keeps per-trial state, and ``torch.func.vmap`` turns the
+    per-trial objective into one batched call for all trials, so an
+    objective evaluation is one call, not B (torch's own
+    ``torch.optim.LBFGS`` keeps its state in Python per instance and
+    does not batch).  Its line search is backtracking Armijo where
+    optax's is a zoom (strong Wolfe) search: the iterates and ``steps``
+    differ from JAX's, the minimisers they converge to agree.
+
+    A trial is frozen once its gradient inf-norm drops below ``gtol``,
+    its step's largest parameter change is at most ``ptol``, its line
+    search fails or its nell is not finite; the loop stops, between
+    segments of ``chunk_steps`` steps, once every trial is done.
+
+    Parameters
+    ----------
+    per_trial_nell : (params (p,), datum) -> scalar nell
+        Objective for one trial, differentiable by autograd and
+        vmappable; ``datum`` is the per-trial slice of ``data``.
+    init_params : Array (B, p)
+    data : tensor tree with leading trial axis B (e.g. the measurements).
+    optimiser : None
+        JAX's optax transform (default ``optax.lbfgs()``); the port has
+        no optax, so only None (the per-trial L-BFGS above) is taken.
+    max_steps, chunk_steps : int
+        Iteration cap and segment length.
+    gtol, ptol : float
+        Per-trial stopping tolerances.
+
+    Returns
+    -------
+    params : Array (B, p)
+    info : dict with ``converged (B,)``, ``steps (B,)``, ``nell (B,)``,
+        ``segments_run`` (int).
+    """
+    if optimiser is not None:
+        raise TypeError("fit_mle_batched takes optimiser=None only: the port runs its own "
+                        "per-trial L-BFGS and has no optax")
+    batched = torch.func.vmap(per_trial_nell)
+    params, info = _minimise(lambda P: batched(P, data), init_params, history=10,
+                             max_steps=max_steps, chunk_steps=chunk_steps, gtol=gtol,
+                             max_backtracks=20, c1=1e-4, callback=None, ptol=ptol)
+    return params, {k: info[k] for k in ("converged", "steps", "nell", "segments_run")}

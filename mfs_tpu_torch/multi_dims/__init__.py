@@ -9,6 +9,7 @@ from mfs_tpu_torch.multi_dims.moments import (
     raw_moments_mvn_kan,
     central_moments_mvn_kan,
     raw_moments_mvn_kan_all,
+    raw_moments_mvn_mgf,
     moments_nd_uniform,
     extract_moments,
     extract_mean,

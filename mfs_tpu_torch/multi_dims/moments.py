@@ -111,6 +111,22 @@ def central_moments_mvn_kan(cov: Array, multi_index) -> Array:
     return raw_moments_mvn_kan(zero, cov, multi_index)
 
 
+def raw_moments_mvn_mgf(mean: Array, cov: Array, multi_index) -> Array:
+    """One moment E[X^kappa], X ~ N(mean, cov), by differentiating the
+    MGF with nested ``torch.func.grad``: a slow test oracle (JAX:
+    ``raw_moments_mvn_mgf``).  ``mean (d,)``, ``cov (d, d)``."""
+    mean, cov = torch.as_tensor(mean), torch.as_tensor(cov)
+
+    def mgf(z):
+        return torch.exp(torch.dot(z, mean) + 0.5 * torch.dot(z, cov @ z))
+
+    f = mgf
+    for axis, order in enumerate(np.asarray(multi_index, np.int64)):
+        for _ in range(int(order)):
+            f = (lambda g, a: lambda z: torch.func.grad(g)(z)[a])(f, axis)
+    return f(torch.zeros(cov.shape[0], dtype=cov.dtype, device=cov.device))
+
+
 def moments_nd_uniform(bounds, multi_index, means=None) -> float:
     """Raw moment of an independent uniform distribution on a box."""
     if means is None:

@@ -40,7 +40,7 @@ import functools
 import torch
 
 from mfs_tpu_torch.config import DTYPE
-from mfs_tpu_torch.ops import build
+from mfs_tpu_torch.ops import build, flops
 from mfs_tpu_torch.typings import Array
 
 MAX_N = 32
@@ -110,6 +110,7 @@ def _quadrature(ms: Array, mean: Array, scale: Array, jitter: float):
     if err != 0:
         raise RuntimeError(f"quadrature_1d launch failed: CUDA error {err}")
     LAUNCHES += 1
+    flops.kernel_launch("quadrature_1d", B, lambda: flops.k1_flops(n)[0])
     return w.T.reshape(batch_shape + (n,)), x.T.reshape(batch_shape + (n,))
 
 

@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from mfs_tpu_torch.config import DTYPE
-from mfs_tpu_torch.ops import build
+from mfs_tpu_torch.ops import build, flops
 from mfs_tpu_torch.typings import Array
 
 MAX_S_EIGH = 10  # K2: one warp per (trial, dimension), matrices in shared memory
@@ -236,6 +236,7 @@ def nd_ldl_fused(ms: Array, inds) -> Tuple[Array, Array, Array, Array]:
             _device_inds(inds, ms.device).data_ptr(), Lu.data_ptr(), piv.data_ptr(),
             c.data_ptr(), isc.data_ptr(), s, z, B)
     LDL_LAUNCHES += 1
+    flops.kernel_launch("nd_ldl", B, lambda: flops.ldl_flops(s))
     return (Lu.reshape(batch_shape + (s, s)),) + tuple(
         v.reshape(batch_shape + (s,)) for v in (piv, c, isc))
 
@@ -265,6 +266,7 @@ def nd_ksolve_fused(ms: Array, inds, Lu: Array, cvec: Array, inv_scale: Array) -
             _device_inds(inds, ms.device).data_ptr(), Lu.data_ptr(), cvec.data_ptr(),
             inv_scale.data_ptr(), K.data_ptr(), d, s, z, B)
     KSOLVE_LAUNCHES += 1
+    flops.kernel_launch("nd_ksolve", B, lambda: flops.ksolve_flops(s, d))
     return K.reshape(batch_shape + (d, s, s))
 
 
@@ -344,7 +346,7 @@ def nd_eigh_fused(ms: Array, inds) -> Tuple[Array, Array]:
     once, lanes over rows, then each warp runs its scaled solves (lanes
     over columns) and its cyclic Jacobi, the rotations of a round
     spread over the lanes.  Its bound is FP64 operations outside the
-    tensor cores (``chip_smoke.py::k2_flops``); it is latency-bound."""
+    tensor cores (``ops/flops.py::k2_flops``); it is latency-bound."""
     global EIGH_LAUNCHES
     if torch.is_tensor(ms) and ms.device.type == "cpu":
         return nd_eigh_fused_plain(ms, inds)
@@ -358,6 +360,8 @@ def nd_eigh_fused(ms: Array, inds) -> Tuple[Array, Array]:
             _device_inds(inds, ms.device).data_ptr(), vals.data_ptr(), vecs.data_ptr(),
             d, s, z, B)
     EIGH_LAUNCHES += 1
+    # The sweeps depend on the data: counted at one a dimension, a lower bound.
+    flops.kernel_launch("nd_eigh", B, lambda: flops.k2_flops(s, d, [1] * d), lower_bound=True)
     return vals.reshape(batch_shape + (d, s)), vecs.reshape(batch_shape + (d, s, s))
 
 

@@ -1,16 +1,115 @@
-"""Divergence rescue for batched Monte-Carlo filtering.
+"""Sharded Monte-Carlo ensemble execution and divergence rescue (port of
+``mfs_tpu/parallel/ensemble.py``).
 
-Port of ``mfs_tpu/parallel/ensemble.py::rescue_diverged``: run the whole
-trial ensemble through a fast runner, then re-run only the trials that
-diverged through one or more robust runners and splice them back in.
-The trial-axis sharding functions wait for ROADMAP E2.
+``run_ensemble_filter`` runs a batch-first filter with the trial axis
+sharded over a ``trial_mesh``; ``sharded_nell_grad`` is the distributed
+parameter-estimation step (mean per-trial nell and its gradient, with
+one all-reduce over the mesh); ``rescue_diverged`` runs the whole trial
+ensemble through a fast runner, then re-runs only the trials that
+diverged through one or more robust runners and splices them back in.
+
+JAX jits the filter over global arrays and XLA partitions it.  Here each
+rank runs the filter eagerly on its own shard as plain tensors (the
+CUDA kernels are ``ctypes`` calls, which take no DTensor), and the
+outputs are wrapped back into DTensors sharded on the trial axis.
 """
 from typing import Any, Callable, Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Shard
+from torch.utils._pytree import tree_flatten, tree_map_only, tree_unflatten
+
+from mfs_tpu_torch.parallel.mesh import TRIAL_AXIS, replicate, shard_trials
 
 Runner = Callable[[torch.Tensor], Dict[str, Any]]
+
+
+def _local(tree: Any) -> Any:
+    return tree_map_only(DTensor, lambda d: d.to_local(), tree)
+
+
+def run_ensemble_filter(
+    filter_fn: Callable,
+    init_moments: Any,
+    ys: Any,
+    mesh: DeviceMesh,
+    donate: bool = False,
+    out_trial_axes: Any = None,
+) -> Any:
+    """Run ``filter_fn(init_moments, ys)`` with trials sharded on ``mesh``.
+
+    Every rank of the mesh calls it with the same whole inputs.
+
+    Parameters
+    ----------
+    filter_fn : (init (b, ...), ys (T, b, ...)) -> outputs
+        A batch-first filter closure (e.g. wrapping ``moment_filter_rms``
+        with the model callables bound), called once per rank on that
+        rank's b = B / mesh-size trials as plain tensors.
+    init_moments : tensor tree with leading trial axis B.
+    ys : tensor tree with trial axis at position 1 (time leads).
+    mesh : DeviceMesh from ``trial_mesh()``.
+    donate : bool
+        Kept for the JAX signature, where it lets XLA reuse the input
+        buffers.  PyTorch has no buffer donation, so it changes nothing:
+        the sharded inputs are this call's own and are freed when it
+        returns.
+    out_trial_axes : int or tree of int, optional
+        The outputs' trial axes, which XLA infers and PyTorch cannot: one
+        int for every output, or a tree shaped like the outputs.  Default:
+        the moment filters' convention, axis 0 for a 1-D output (nell)
+        and axis 1 otherwise (time-stacked moments, means).
+
+    Returns
+    -------
+    The filter outputs as DTensors, trial axis sharded.
+    """
+    del donate
+    outs = filter_fn(_local(shard_trials(init_moments, mesh, axis=0)),
+                     _local(shard_trials(ys, mesh, axis=1)))
+    leaves, spec = tree_flatten(outs)
+    if out_trial_axes is None:
+        axes = [0 if x.ndim == 1 else 1 for x in leaves]
+    elif isinstance(out_trial_axes, int):
+        axes = [out_trial_axes] * len(leaves)
+    else:
+        axes = tree_flatten(out_trial_axes)[0]
+    return tree_unflatten([DTensor.from_local(x, mesh, [Shard(ax)], run_check=False)
+                           for x, ax in zip(leaves, axes)], spec)
+
+
+def sharded_nell_grad(
+    nell_fn: Callable,
+    params: Any,
+    ys: Any,
+    mesh: DeviceMesh,
+) -> Tuple[torch.Tensor, Any]:
+    """Mean nell over sharded trials and its gradient w.r.t. ``params``.
+
+    ``nell_fn(params, ys) -> (b,)`` per-trial negative log likelihoods.
+    ``params`` is replicated and ``ys`` sharded on axis 1; each rank
+    differentiates the sum of its own trials' nell by autograd, and one
+    all-reduce of [sum, gradient, count] over the mesh gives the mean
+    over all B trials.  Every rank returns the same ``(loss, grad)``,
+    plain tensors, ``grad`` shaped like ``params``.
+    """
+    leaves, spec = tree_flatten(_local(replicate(params, mesh)))
+    leaves = [x.detach().requires_grad_(True) for x in leaves]
+    with torch.enable_grad():
+        nell = nell_fn(tree_unflatten(leaves, spec), _local(shard_trials(ys, mesh, axis=1)))
+        grads = torch.autograd.grad(nell.sum(), leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+    buf = torch.cat([nell.detach().sum().reshape(1)]
+                    + [g.reshape(-1).to(nell.dtype) for g in grads]
+                    + [nell.new_full((1,), nell.shape[0])])
+    dist.all_reduce(buf, group=mesh.get_group(TRIAL_AXIS))
+    mean = buf[:-1] / buf[-1]
+    parts = mean[1:].split([x.numel() for x in leaves])
+    return mean[0], tree_unflatten([g.reshape(x.shape).to(x.dtype)
+                                    for g, x in zip(parts, leaves)], spec)
 
 
 def _mask(x) -> np.ndarray:

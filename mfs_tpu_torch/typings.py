@@ -13,4 +13,6 @@ from typing import Union
 import torch
 
 Array = torch.Tensor
+ArrayLike = Union[torch.Tensor, float, int]
 FloatScalar = Union[float, torch.Tensor]
+IntScalar = Union[int, torch.Tensor]

@@ -18,6 +18,7 @@ from mfs_tpu_torch.utils.gaussian import (
     GaussianSumND,
     discretise_lti_sde,
 )
-from mfs_tpu_torch.utils.linalg import ldl, ldl_chol
+from mfs_tpu_torch.utils.linalg import ldl, ldl_chol, lanczos, lanczos_ritz
 from mfs_tpu_torch.utils.sdes import simulate_sde, simulate_sde_ensemble
 from mfs_tpu_torch.utils.pcrlb import posterior_cramer_rao
+from mfs_tpu_torch.utils.profiling import timed, trace

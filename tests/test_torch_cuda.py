@@ -717,3 +717,70 @@ def test_densities_on_card_match_cpu(cuda):
     for card, host in zip(out["cuda"][1:3], out["cpu"][1:3]):
         peak = host.abs().amax(-1, keepdim=True)
         assert ((card - host).abs() <= 1e-10 * peak).all()
+
+
+def test_fit_mle_batched_on_card_matches_cpu(cuda):
+    """``fit_mle_batched`` (per-trial L-BFGS, ``torch.func.vmap``'d
+    objective) on cuda tensors against the same call on CPU tensors: a
+    per-trial Gaussian MLE of 64 trials, gtol 1e-8, 100 steps.  The
+    parameters agree within 1e-7 with each other and with the closed
+    form; every trial converges on the CPU, and a trial the card does not
+    flag converged has run all 100 steps.  (Within ~1e-9 of the optimum
+    the objective, ~50, changes by less than its rounding, so the Armijo
+    search accepts or refuses steps by rounding, and an iterate can
+    wander there without its gradient meeting gtol, as on an H100.)"""
+    from mfs_tpu_torch.estimation import fit_mle_batched
+    rng = np.random.RandomState(4)
+    data = torch.as_tensor(rng.randn(64, 50) * np.linspace(0.5, 2.0, 64)[:, None]
+                           + np.linspace(-1, 1, 64)[:, None])
+
+    def nell(q, y):
+        return torch.sum(0.5 * ((y - q[0]) / torch.exp(q[1])) ** 2 + q[1])
+
+    out = {}
+    for dev in ("cpu", cuda):
+        P, info = fit_mle_batched(nell, torch.zeros(64, 2, dtype=torch.float64, device=dev),
+                                  data.to(dev), max_steps=100, gtol=1e-8)
+        assert P.device.type == torch.device(dev).type
+        assert bool((info["converged"] | (info["steps"] == 100)).all())
+        assert bool(info["converged"].all()) or dev != "cpu"
+        out[str(dev)] = P.cpu()
+    closed = torch.stack([data.mean(1), torch.log(data.std(1, unbiased=False))], dim=1)
+    assert (out["cuda"] - out["cpu"]).abs().max().item() <= 1e-7
+    assert (out["cuda"] - closed).abs().max().item() <= 1e-7
+
+
+def test_count_flops_counts_k1_launches(cuda):
+    """``count_flops`` of a Beneš–Bernoulli N=15 pass on the card (T=3,
+    B=512): K1 launches 2T times, and its breakdown key is launches x B
+    x ``k1_flops(15)``; the glue's aten ops are counted beside it."""
+    from mfs_tpu_torch.ops.flops import count_flops, k1_flops
+    N, B, T = 15, 512, 3
+    model = benes_bernoulli(N=N, device=cuda)
+    trans = sde_cond_moments_tme_normal(model.drift, model.dispersion, model.dt, 2, N)
+    ic = model.init_cond
+    ys = torch.ones((T, B), dtype=torch.float64, device=cuda)
+    before = qk.LAUNCHES
+    r = count_flops(lambda: moment_filter_cms(
+        trans.cms, trans.mean, model.measurement_cond_pdf, ic.cms.expand(B, 2 * N),
+        ic.mean.expand(B), ys, eigh_impl="fused"))
+    launches = qk.LAUNCHES - before
+    assert launches == 2 * T
+    assert r["breakdown"]["kernel[quadrature_1d][float64]"] == launches * B * k1_flops(N)[0]
+    assert r["f64"] > r["breakdown"]["kernel[quadrature_1d][float64]"]
+    assert not r["lower_bounds"]
+
+
+def test_trial_mesh_cuda_raises_without_a_gpu(cuda):
+    """With the GPU hidden (``CUDA_VISIBLE_DEVICES=""``), asking for a
+    CUDA mesh raises instead of returning a CPU mesh."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run(
+        [sys.executable, "-c", "from mfs_tpu_torch.parallel import trial_mesh; "
+         "trial_mesh(device_type='cuda')"],
+        cwd=root, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""}, capture_output=True,
+        text=True, timeout=120)
+    assert p.returncode != 0 and "needs a GPU" in p.stderr

@@ -145,15 +145,25 @@ _EXPORTS = {
               "complete_bell", "hermite_probabilist", "hermite_probabilist_all", "pascal_lower",
               "normal_raw_moments_all", "raw_moment_of_normal", "raw_moment_of_standard_normal",
               "central_moment_of_normal", "GaussianSum1D", "GaussianSumND", "ldl", "ldl_chol",
-              "simulate_sde", "simulate_sde_ensemble", "discretise_lti_sde",
-              "posterior_cramer_rao"],
+              "lanczos", "lanczos_ritz", "simulate_sde", "simulate_sde_ensemble",
+              "discretise_lti_sde", "posterior_cramer_rao", "timed", "trace"],
     "filters": ["SigmaPoints", "rk4_m_cov", "rk4_m_cov_backward", "gaussian_expectation", "kf",
                 "rts", "ekf", "eks", "cd_ekf", "cd_eks", "sgp_filter", "sgp_smoother",
                 "cd_sgp_filter", "cd_sgp_smoother", "bootstrap_filter", "particle_filter",
                 "systematic", "stratified", "multinomial", "continuous_resampling",
                 "brute_force_filter"],
-    "parallel": ["rescue_diverged"],
-    "estimation": ["fit_mle_scipy", "fit_mle_optax", "lbfgs_batched"],
+    "parallel": ["trial_mesh", "shard_trials", "replicate", "run_ensemble_filter",
+                 "sharded_nell_grad", "rescue_diverged"],
+    "estimation": ["fit_mle_scipy", "fit_mle_optax", "fit_mle_batched", "lbfgs_batched"],
+    "multi_dims": ["sizeof_multi_indices", "graded_lexico_indexof_multi_index",
+                   "generate_graded_lexico_multi_indices", "find_indices",
+                   "gram_and_hankel_indices_graded_lexico", "raw_moments_mvn_kan",
+                   "central_moments_mvn_kan", "raw_moments_mvn_kan_all", "raw_moments_mvn_mgf",
+                   "moments_nd_uniform", "extract_moments", "extract_mean", "extract_cov",
+                   "marginalise_moments", "monomials_nd", "sde_cond_moments_nd_tme",
+                   "sde_cond_moments_nd_tme_normal", "sde_cond_moments_nd_euler_maruyama",
+                   "poly_tme_nd", "moment_quadrature_nd", "moment_filter_nd_rms",
+                   "moment_filter_nd_cms", "moment_filter_nd_scms"],
 }
 
 
@@ -181,11 +191,11 @@ def fresh_imports():
 def test_subpackage_reexports(sub, fresh_imports):
     """Each name imports from the subpackage as the first import of a
     fresh interpreter (so an import cycle would show), and, but for
-    ``parallel``'s, is a name the JAX subpackage exports too."""
+    ``parallel.rescue_diverged``, is a name the JAX subpackage exports
+    too."""
     import importlib
 
     rc, err = fresh_imports[sub]
     assert rc == 0, err
-    if sub != "parallel":
-        jax_pkg = importlib.import_module(f"mfs_tpu.{sub}")
-        assert all(hasattr(jax_pkg, n) for n in _EXPORTS[sub])
+    jax_pkg = importlib.import_module(f"mfs_tpu.{sub}")
+    assert all(hasattr(jax_pkg, n) for n in _EXPORTS[sub] if n != "rescue_diverged")
