@@ -9,10 +9,18 @@ plain PyTorch version:
   the f64 ``stable=True`` LAPACK path on the card), through K1
   (``csrc/quadrature_1d.cu``);
 - ND: the 2D prey–predator central-moment filter with the polynomial
-  TME-2, B=1024, at N=7 (T=2000) and N=11 (T=50) through nd_ldl +
+  TME-2, B=1024, at N=7 (T=2000) and N=11 (T=25) through nd_ldl +
   nd_ksolve + cuSOLVER eigh and at N=3 (T=2000) through K2
   (``csrc/quadrature_nd.cu``), with 64, 64 and 16 trials re-run
   on the CPU through the plain versions in worker processes;
+- the scaled-central filters: the 1D main path's data through
+  ``moment_filter_scms`` (K1) and prey–predator through
+  ``moment_filter_nd_scms`` at N=3 (K2) and N=7 (the pair), each beside
+  the central filter and re-run in part on the CPU;
+- the 3D food chain (``experiments/lotka_volterra_3d.py``): the central
+  filter at N=2, 3 (K2 at d=3) and N=4 (the pair at d=3, s=20), B=1024,
+  through "auto" and "refined", beside the Gauss–Hermite filter and the
+  EKF on the same trials, with 16 trials re-run on the CPU;
 - MLE: the Well–Poisson maximum likelihood of
   ``experiments/parameter_estimation.py`` (N=4, B=1000 trials, T=1000):
   one batched gradient through K1's forward and its implicit-function
@@ -564,8 +572,9 @@ ND_B = 1024
 # eigh) is cut below the JAX experiments' T=200: cuSOLVER's eigh loops
 # over the 2,048 66x66 matrices one by one (~1.9 s a call, two calls a
 # step on an H100), so T=200 alone would take ~800 s of the run's
-# 1,200 s limit; T=50 keeps the whole run near half of it.
-ND_T = {7: 2000, 3: 2000, 11: 50}
+# 1,200 s limit.  T=25 (from T=50) pays for the 3D food chain's and the
+# scaled filters' phases; every step of the pass is the same work.
+ND_T = {7: 2000, 3: 2000, 11: 25}
 ND_ORDERS = tuple(ND_T)
 ND_SUBSTEPS = 10  # Milstein sub-steps per observation (the model's own 100 is cut)
 ND_CPU_SUBSET = {7: 64, 3: 64, 11: 16}
@@ -778,14 +787,15 @@ def phase_nd_k_vs_plain():
             raise AssertionError(f"nd_ldl / nd_ksolve disagree with their plain versions: {fields}")
 
 
-def nd_setup(N, device):
-    """Prey–predator at order N: (mis, inds, model, poly TME-2)."""
-    from mfs_tpu_torch.models.multi_dims import prey_predator
+def nd_setup(N, device, d=2):
+    """Prey–predator (d=2) or the 3D food chain (d=3) at order N: (mis,
+    inds, model, poly TME-2)."""
+    from mfs_tpu_torch.models.multi_dims import lotka_volterra_3d, prey_predator
     from mfs_tpu_torch.multi_dims import multi_indices as nd_mi
     from mfs_tpu_torch.multi_dims.poly_tme import poly_tme_nd
-    mis = nd_mi.generate_graded_lexico_multi_indices(2, 2 * N - 1)
-    inds = nd_mi.gram_and_hankel_indices_graded_lexico(N, 2)
-    model = prey_predator(mis, device=device)
+    mis = nd_mi.generate_graded_lexico_multi_indices(d, 2 * N - 1)
+    inds = nd_mi.gram_and_hankel_indices_graded_lexico(N, d)
+    model = (prey_predator if d == 2 else lotka_volterra_3d)(mis, device=device)
     poly = poly_tme_nd(model.drift, model.dispersion, model.dt, 2, mis, 2, 1, device=device)
     return mis, inds, model, poly
 
@@ -796,8 +806,24 @@ def run_nd_filter(setup, ys, eigh_impl):
     ic = model.init_cond
     B = ys.shape[1]
     return moment_filter_nd_cms(poly.cms, poly.mean, model.measurement_cond_pdf, ys, (mis, inds),
-                                ic.cms.expand(B, -1), ic.mean.expand(B, 2), eigh_impl=eigh_impl,
+                                ic.cms.expand(B, -1), ic.mean.expand(B, -1), eigh_impl=eigh_impl,
                                 predict_fn=poly.predict_cms)
+
+
+def run_nd_scms_filter(setup, ys, eigh_impl):
+    """The scaled-central ND filter with the poly TME's fused
+    ``predict_scms``, from the initial condition's moments scaled by its
+    standard deviations: (scmss, means, scales, nell)."""
+    from mfs_tpu_torch.multi_dims.filtering import moment_filter_nd_scms
+    from mfs_tpu_torch.multi_dims.moments import monomials_nd
+    mis, inds, model, poly = setup
+    ic = model.init_cond
+    B = ys.shape[1]
+    scale0 = torch.sqrt(torch.diagonal(ic.cov))
+    return moment_filter_nd_scms(poly.scms, poly.mean_var, model.measurement_cond_pdf, ys,
+                                 (mis, inds), (ic.cms / monomials_nd(scale0, mis)).expand(B, -1),
+                                 ic.mean.expand(B, -1), scale0.expand(B, -1), eigh_impl=eigh_impl,
+                                 predict_fn=poly.predict_scms)
 
 
 def phase_nd_data():
@@ -816,15 +842,16 @@ def phase_nd_data():
     return xss, yss
 
 
-def nd_cpu_filter(N, ys, threads):
-    """The ND filter at order N on CPU tensors, where the fused wrappers
-    run the plain versions of K2, nd_ldl and nd_ksolve; run in a worker
-    process.
+def nd_cpu_filter(N, ys, threads, d=2, scaled=False):
+    """The ND filter at order N in d dimensions (central, or scaled-central
+    with ``scaled``) on CPU tensors, where the fused wrappers run the plain
+    versions of K2, nd_ldl and nd_ksolve; run in a worker process.
     Returns (nell, seconds)."""
     torch.set_num_threads(threads)
-    setup = nd_setup(N, "cpu")
+    setup = nd_setup(N, "cpu", d)
     t0 = time.perf_counter()
-    _, _, nell = run_nd_filter(setup, torch.as_tensor(ys), "fused")
+    run = run_nd_scms_filter if scaled else run_nd_filter
+    nell = run(setup, torch.as_tensor(ys), "fused")[-1]
     return nell.numpy(), time.perf_counter() - t0
 
 
@@ -853,34 +880,32 @@ def phase_nd_main_path(smi, xss, yss):
     nd_ksolve launch (+ cuSOLVER eigh), at N=3 one K2 launch.  Each pass
     runs with every count set to 0 just before and read just after:
     exactly 2*T launches of each of its kernels and none of the others.
-    Returns the setups, the outputs and each pass's launches.  Outputs are checked for shape, a
+    Returns the setups, the outputs and each pass's record (``nd_pass``).
+    Outputs are checked for shape, a
     finite share of at least ``ND_FINITE_MIN[N]`` (in f64 some trials lose
     a realisable moment vector after step ~600, in the JAX package's
     filter as well) and a mean absolute error of the filtering mean below
     0.2 (the state is ~1)."""
-    from mfs_tpu_torch.ops import quadrature_kernel as qk
-    from mfs_tpu_torch.ops import quadrature_nd_kernel as qnd
     from mfs_tpu_torch.ops.dispatch import fused_nd_kernel
-    setups, outs = {}, {}
-    launches = {}
+    setups, outs, passes = {}, {}, []
     for N in ND_ORDERS:
         T = ND_T[N]
         setups[N] = setup = nd_setup(N, "cuda")
         s = setup[1].shape[1]
         kernels = ND_ROUTE_KERNELS[fused_nd_kernel(s, 2)]
         torch.cuda.reset_peak_memory_stats()
-        qk.LAUNCHES = qnd.EIGH_LAUNCHES = qnd.LDL_LAUNCHES = qnd.KSOLVE_LAUNCHES = 0
+        zero_nd_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cmss, means, nell = run_nd_filter(setup, yss[:T], "auto")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {"K1": qk.LAUNCHES, "K2": qnd.EIGH_LAUNCHES,
-                  "nd_ldl": qnd.LDL_LAUNCHES, "nd_ksolve": qnd.KSOLVE_LAUNCHES}
-        launches[N] = {k: counts[k] for k in kernels}
+        counts = read_nd_counts()
+        passes.append(nd_pass("prey_predator", N, setup, counts, kernels))
         finite = torch.isfinite(nell) & torch.isfinite(means).all(-1).all(0)
         err = (means - xss[:T])[:, finite].abs().mean().item() if finite.any() else float("nan")
-        outs[N] = dict(cmss=cmss, nell=nell, finite=finite, ms_per_step=wall / T * 1e3)
+        outs[N] = dict(cmss=cmss, means=means, nell=nell, finite=finite,
+                       ms_per_step=wall / T * 1e3)
         z = setup[0].shape[0]
         emit("nd_main_path", N=N, s=s, z=z, nodes=s * s, T=T, B=ND_B,
              kernels=list(kernels), launches=counts, wall_s=wall, trials_per_s=ND_B / wall,
@@ -896,7 +921,28 @@ def phase_nd_main_path(smi, xss, yss):
         if not (finite.double().mean().item() >= ND_FINITE_MIN[N] and err < 0.2):
             raise AssertionError(f"N={N}: finite_frac {finite.double().mean().item()}, "
                                  f"mean abs error {err}")
-    return setups, outs, launches
+    return setups, outs, passes
+
+
+def nd_pass(label, N, setup, counts, kernels):
+    """One ND pass's record for the kernels line: its model, order, basis
+    and the launches of each kernel of its route."""
+    inds = setup[1]
+    return dict(model=label, N=N, d=inds.shape[0] - 1, s=inds.shape[1],
+                launches={k: counts[k] for k in kernels})
+
+
+def zero_nd_counts():
+    from mfs_tpu_torch.ops import quadrature_kernel as qk
+    from mfs_tpu_torch.ops import quadrature_nd_kernel as qnd
+    qk.LAUNCHES = qnd.EIGH_LAUNCHES = qnd.LDL_LAUNCHES = qnd.KSOLVE_LAUNCHES = 0
+
+
+def read_nd_counts():
+    from mfs_tpu_torch.ops import quadrature_kernel as qk
+    from mfs_tpu_torch.ops import quadrature_nd_kernel as qnd
+    return {"K1": qk.LAUNCHES, "K2": qnd.EIGH_LAUNCHES, "nd_ldl": qnd.LDL_LAUNCHES,
+            "nd_ksolve": qnd.KSOLVE_LAUNCHES}
 
 
 def save_nd_fates(N, ys, finite):
@@ -909,7 +955,7 @@ def save_nd_fates(N, ys, finite):
                         kept=finite.cpu().numpy(), N=N, substeps=ND_SUBSTEPS)
 
 
-def pair_timing(N, ms, mis, inds, ms_per_step):
+def pair_timing(label, N, ms, mis, inds, ms_per_step):
     """nd_ldl and nd_ksolve on the main path's inputs: ``pair_checks``,
     each kernel and its plain version by CUDA events (20 and 3 launches),
     the bounds from ldl_flops/ksolve_flops and the bytes (each input read
@@ -923,7 +969,7 @@ def pair_timing(N, ms, mis, inds, ms_per_step):
     fields, ok, (Lu, c, isc) = pair_checks(ms, mis, inds)
     if not ok:
         raise AssertionError(f"nd_ldl / nd_ksolve disagree with their plain versions on "
-                             f"main-path inputs: {fields}")
+                             f"{label} N={N} inputs: {fields}")
     idx = torch.as_tensor(inds, device="cuda")
     G, H = ms[:, idx[0]], ms[:, idx[1:]]
     R = torch.linalg.cholesky_ex(G)[0][:, None]
@@ -951,8 +997,10 @@ def pair_timing(N, ms, mis, inds, ms_per_step):
         library_path_ms = cuda_ms(lib, reps=3, warmup=1)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP64_TC_FLOP_PER_S
         rows[name] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
-                          bound_by="bytes" if t_bytes > t_ops else "operations", max_abs_err=err)
-        emit("nd_timing", kernel=name, N=N, s=s, d=d, B=B, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                          bound_by="bytes" if t_bytes > t_ops else "operations", max_abs_err=err,
+                          f64_library_path_ms=library_path_ms, B=B)
+        emit("nd_timing", model=label, kernel=name, N=N, s=s, d=d, B=B, kernel_ms=kernel_ms,
+             plain_ms=plain_ms,
              f64_library_path_ms=library_path_ms,
              f64_library_path_note=lib_note + "; multi-call yardstick",
              bound_ms=rows[name]["bound_ms"], bound_by=rows[name]["bound_by"], fp64_ops=ops,
@@ -960,75 +1008,105 @@ def pair_timing(N, ms, mis, inds, ms_per_step):
              **({"layout": qnd.ksolve_layout(s, d)} if name == "nd_ksolve" else {}))
     eigh_ms = cuda_ms(lambda: torch.linalg.eigh(K), reps=2, warmup=1)
     pair_ms = rows["nd_ldl"]["ms"] + rows["nd_ksolve"]["ms"]
-    emit("nd_timing_checks", N=N, **fields)
-    emit("nd_timing_eigh", N=N, matrices=B * d, s=s, eigh_ms=eigh_ms, pair_ms=pair_ms,
+    emit("nd_timing_checks", model=label, N=N, **fields)
+    emit("nd_timing_eigh", model=label, N=N, matrices=B * d, s=s, eigh_ms=eigh_ms, pair_ms=pair_ms,
          ms_per_step=ms_per_step, eigh_share_of_step=2 * eigh_ms / ms_per_step,
          pair_share_of_step=2 * pair_ms / ms_per_step)
     return rows
 
 
-def phase_nd_timing(setups, outs):
-    """Each ND order's kernels on the main path's own inputs: the moment
-    vectors of step T/2, B=1024, the trials still finite.  nd_ldl and
-    nd_ksolve (N=7 and N=11): ``pair_timing``.  K2 (N=3): kernel and plain
-    version by CUDA events (20 and 3 launches); the bound from k2_flops
-    with this input's Jacobi sweeps and the bytes; the multi-call library
-    yardstick cholesky_ex + 2 solve_triangular per dimension + eigh.  The
-    route is ``ops/dispatch.py``'s.  No single PyTorch call computes any
-    of these functions, so ``library_ms`` is null.  Returns the rows by
-    (kernel, N)."""
+def phase_nd_timing(label, setups, outs, steps):
+    """Each order's kernels on its filter's own inputs: the moment vectors
+    of step ``steps[N] // 2``, the trials still finite
+    (``nd_route_timing``).  Returns the rows by (kernel, label, N)."""
+    rows = {}
+    for N, setup in setups.items():
+        mis, inds = setup[0], setup[1]
+        ms = outs[N]["cmss"][steps[N] // 2]
+        for name, row in nd_route_timing(label, N, ms, mis, inds,
+                                         outs[N]["ms_per_step"]).items():
+            rows[name, label, N] = row
+    return rows
+
+
+def nd_route_timing(label, N, ms, mis, inds, ms_per_step):
+    """The kernels of ``ops/dispatch.py``'s route for one filter's moment
+    vectors ``ms (B, z)`` (the trials still finite are kept).  nd_ldl and
+    nd_ksolve: ``pair_timing``.  K2: kernel and plain version by CUDA
+    events (20 and 3 launches); the bound from k2_flops with this input's
+    Jacobi sweeps and the bytes; the multi-call library yardstick
+    cholesky_ex + 2 solve_triangular per dimension + eigh.  No single
+    PyTorch call computes any of these functions, so ``library_ms`` is
+    null.  Returns the rows by kernel name."""
     from mfs_tpu_torch.ops import quadrature_nd_kernel as qnd
     from mfs_tpu_torch.ops.dispatch import fused_nd_kernel
-    rows = {}
-    for N in ND_ORDERS:
-        mis, inds, _, _ = setups[N]
-        d, s = inds.shape[0] - 1, inds.shape[1]
-        ms = outs[N]["cmss"][ND_T[N] // 2]
-        ms = ms[torch.isfinite(ms).all(-1)].contiguous()
-        B, z = ms.shape
-        if fused_nd_kernel(s, d) == "nd_k":
-            for name, row in pair_timing(N, ms, mis, inds, outs[N]["ms_per_step"]).items():
-                rows[name, N] = row
-            continue
-        idx = torch.as_tensor(inds, device="cuda")
+    d, s = inds.shape[0] - 1, inds.shape[1]
+    ms = ms[torch.isfinite(ms).all(-1)].contiguous()
+    B, z = ms.shape
+    if fused_nd_kernel(s, d) == "nd_k":
+        return pair_timing(label, N, ms, mis, inds, ms_per_step)
+    idx = torch.as_tensor(inds, device="cuda")
 
-        def library():
-            R, _ = torch.linalg.cholesky_ex(ms[:, idx[0]])
-            R = R[:, None]
-            X = torch.linalg.solve_triangular(R, ms[:, idx[1:]], upper=False)
-            return torch.linalg.eigh(torch.linalg.solve_triangular(R.mT, X, upper=True,
-                                                                   left=False))
+    def library():
+        R, _ = torch.linalg.cholesky_ex(ms[:, idx[0]])
+        R = R[:, None]
+        X = torch.linalg.solve_triangular(R, ms[:, idx[1:]], upper=False)
+        return torch.linalg.eigh(torch.linalg.solve_triangular(R.mT, X, upper=True,
+                                                               left=False))
 
-        run = lambda: qnd.nd_eigh_fused(ms, inds)
-        plain = lambda: qnd.nd_eigh_fused_plain(ms, inds)
-        vals, vecs = run()
-        torch.cuda.synchronize()
-        # the plain version stops each Jacobi run on the kernel's test
-        vp, _, sweeps = qnd.nd_eigh_fused_plain(ms, inds, return_sweeps=True)
-        _, checks = k2_checks(ms, mis, inds, vals, vecs, vp)
-        err = checks["max_eigenvalue_gap"]
-        over = max(checks["max_eigenvalue_gap_over_tol"], checks["max_residual_over_tol"])
-        sw = sweeps.cpu().numpy()
-        ops = sum(k2_flops(s, d, [int(n) for n in row]) for row in sw)
-        if not over <= 1.0:
-            raise AssertionError("K2 disagrees with its plain version on main-path inputs")
-        # ms in, vals + vecs out, and the int32 index tables
-        nbytes = (B * z + B * d * s * s + B * d * s) * 8 + (d + 1) * s * s * 4
-        kernel_ms = cuda_ms(run, reps=20)
-        plain_ms = cuda_ms(plain, reps=3, warmup=1)
-        library_path_ms = cuda_ms(library, reps=3, warmup=1)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP64_FLOP_PER_S
-        rows["K2", N] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
-                             bound_by="bytes" if t_bytes > t_ops else "operations",
-                             max_abs_err=err)
-        emit("nd_timing", kernel="K2", N=N, s=s, d=d, B=B, kernel_ms=kernel_ms, plain_ms=plain_ms,
-             f64_library_path_ms=library_path_ms,
-             f64_library_path_note="cholesky_ex + 2 solve_triangular + eigh, batched over the d "
-                                   "dimensions; multi-call yardstick",
-             bound_ms=rows["K2", N]["bound_ms"], bound_by=rows["K2", N]["bound_by"],
-             fp64_ops=ops, bytes=nbytes, max_abs_err=err, max_gap_over_tol=over, **checks,
-             sweeps_mean=float(sw.mean()), sweeps_max=int(sw.max()))
-    return rows
+    run = lambda: qnd.nd_eigh_fused(ms, inds)
+    plain = lambda: qnd.nd_eigh_fused_plain(ms, inds)
+    vals, vecs = run()
+    torch.cuda.synchronize()
+    # the plain version stops each Jacobi run on the kernel's test
+    vp, _, sweeps = qnd.nd_eigh_fused_plain(ms, inds, return_sweeps=True)
+    _, checks = k2_checks(ms, mis, inds, vals, vecs, vp)
+    err = checks["max_eigenvalue_gap"]
+    over = max(checks["max_eigenvalue_gap_over_tol"], checks["max_residual_over_tol"])
+    sw = sweeps.cpu().numpy()
+    ops = sum(k2_flops(s, d, [int(n) for n in row]) for row in sw)
+    if not over <= 1.0:
+        raise AssertionError(f"K2 disagrees with its plain version on {label} N={N} inputs")
+    # ms in, vals + vecs out, and the int32 index tables
+    nbytes = (B * z + B * d * s * s + B * d * s) * 8 + (d + 1) * s * s * 4
+    kernel_ms = cuda_ms(run, reps=20)
+    plain_ms = cuda_ms(plain, reps=3, warmup=1)
+    library_path_ms = cuda_ms(library, reps=3, warmup=1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP64_FLOP_PER_S
+    row = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes > t_ops else "operations", max_abs_err=err,
+               f64_library_path_ms=library_path_ms, B=B)
+    emit("nd_timing", model=label, kernel="K2", N=N, s=s, d=d, B=B, kernel_ms=kernel_ms,
+         plain_ms=plain_ms, f64_library_path_ms=library_path_ms,
+         f64_library_path_note="cholesky_ex + 2 solve_triangular + eigh, batched over the d "
+                               "dimensions; multi-call yardstick",
+         bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+         fp64_ops=ops, bytes=nbytes, max_abs_err=err, max_gap_over_tol=over, **checks,
+         sweeps_mean=float(sw.mean()), sweeps_max=int(sw.max()))
+    return {"K2": row}
+
+
+def nd_cpu_gap(parts, card_nell):
+    """A CPU re-run's nell (its worker parts, each (nell, seconds),
+    concatenated) against the card's on the same leading trials: the
+    fields to print, and whether every trial agrees to rtol 1e-8 with the
+    same trials finite."""
+    nell = torch.as_tensor(np.concatenate([p[0] for p in parts]))
+    card = card_nell[:nell.shape[0]].cpu()
+    fin, fin_card = torch.isfinite(nell), torch.isfinite(card)
+    both = fin & fin_card
+    gap = nell_gap(nell, card, both)
+    agree = bool((fin == fin_card).all())
+    return (dict(trials=nell.shape[0], finite_in_both=int(both.sum()), finite_agree=agree,
+                 max_rel_gap=gap[0], median_rel_gap=gap[1],
+                 cpu_seconds=max(p[1] for p in parts)),
+            agree and bool(both.any()) and gap[0] < 1e-8)
+
+
+def nell_gap(nell, ref, keep):
+    """(max, median) of |nell - ref| / |ref| over the trials ``keep``."""
+    rel = ((nell - ref).abs() / ref.abs())[keep]
+    return (rel.max().item(), rel.median().item()) if rel.numel() else (float("nan"),) * 2
 
 
 def phase_nd_cpu_reference(outs, pending):
@@ -1038,18 +1116,9 @@ def phase_nd_cpu_reference(outs, pending):
     timed phases; ``cpu_seconds`` is the slowest part's): nell agrees with
     the card's to rtol 1e-8 on every trial, and both keep the same trials."""
     for N in ND_ORDERS:
-        parts = [job.get() for job in pending[N]]
-        nell = torch.as_tensor(np.concatenate([p[0] for p in parts]))
-        cpu_s = max(p[1] for p in parts)
-        card = outs[N]["nell"][:ND_CPU_SUBSET[N]].cpu()
-        fin, fin_card = torch.isfinite(nell), torch.isfinite(card)
-        both = fin & fin_card
-        rel = ((nell - card).abs() / card.abs())[both]
-        emit("nd_cpu_reference", N=N, trials=ND_CPU_SUBSET[N], T=ND_T[N],
-             finite_in_both=int(both.sum()),
-             finite_agree=bool((fin == fin_card).all()), max_rel_gap=rel.max().item(),
-             median_rel_gap=rel.median().item(), cpu_seconds=cpu_s)
-        if not (bool((fin == fin_card).all()) and both.sum() > 0 and rel.max().item() < 1e-8):
+        fields, ok = nd_cpu_gap([job.get() for job in pending[N]], outs[N]["nell"])
+        emit("nd_cpu_reference", N=N, T=ND_T[N], **fields)
+        if not ok:
             raise AssertionError(f"N={N}: kernel path and plain path disagree on nell")
 
 
@@ -1083,6 +1152,344 @@ def phase_nd_profile(setups):
              top_kernels_ms=[[k[:60], v / 1e3] for k, v in top],
              port_kernels_share_of_busy={k: v / busy_us for k, v in ours.items() if v}
              if busy_us else None)
+
+
+# ---------------------------------------------------------------------------
+# The scaled-central filters: 1D on the main path, ND on prey–predator
+# ---------------------------------------------------------------------------
+
+SCMS_ND_ORDERS = (3, 7)  # K2 (s=6) and nd_ldl + nd_ksolve + f64 eigh (s=28)
+SCMS_ND_T = 200  # the first 200 steps of the ND phase's observations
+SCMS_ND_CPU_SUBSET = 16
+
+
+def phase_scms_1d(model, trans, ys, tier0_out, smi):
+    """``moment_filter_scms`` on the main path's data and transition
+    (Beneš–Bernoulli N=15, T=100, B=4096, TME-2 Normal closure) through
+    K1 ("fused", scaled moments, each trial's running mean and scale
+    handed to the kernel): exactly 2T K1 launches, counted from 0 around
+    the pass.  Its finite share is printed beside tier 0's, and its nell
+    and means beside the central filter's (re-run, uncounted, on the same
+    data) on the trials finite in both: measures, not limits.  Returns
+    its nell and K1's launches."""
+    from mfs_tpu_torch.one_dim.filtering import moment_filter_cms, moment_filter_scms
+    from mfs_tpu_torch.ops import quadrature_kernel as qk
+    ic = model.init_cond
+    qk.LAUNCHES = 0
+    (scmss, means, scales, nell), wall, peak = on_card(lambda: moment_filter_scms(
+        trans.scms, trans.mean_var, model.measurement_cond_pdf, ic.scms.expand(BATCH, 2 * N),
+        ic.mean.expand(BATCH), torch.sqrt(ic.variance).expand(BATCH), ys, eigh_impl="fused"))
+    launches = qk.LAUNCHES
+    _, cmeans, cnell = moment_filter_cms(
+        trans.cms, trans.mean, model.measurement_cond_pdf, ic.cms.expand(BATCH, 2 * N),
+        ic.mean.expand(BATCH), ys, eigh_impl="fused")
+    finite = (torch.isfinite(scmss[-1]).all(-1) & torch.isfinite(nell)
+              & torch.isfinite(means).all(0) & torch.isfinite(scales).all(0))
+    cfinite = torch.isfinite(cnell) & torch.isfinite(cmeans).all(0)
+    both = finite & cfinite
+    gap = nell_gap(nell, cnell, both)
+    emit("scms_1d", N=N, T=T, B=BATCH, tme_order=2, wall_s=wall, trials_per_s=BATCH / wall,
+         peak_mem_added_gb=peak, k1_launches=launches, k1_launches_expected=2 * T,
+         finite_frac=finite.double().mean().item(),
+         finite_frac_tier0=finite_mask(tier0_out).double().mean().item(),
+         finite_frac_central_rerun=cfinite.double().mean().item(), finite_in_both=int(both.sum()),
+         nell_max_rel_gap_to_central=gap[0], nell_median_rel_gap_to_central=gap[1],
+         means_max_abs_gap_to_central=(means - cmeans)[:, both].abs().max().item(),
+         central_rerun_equals_tier0=bool(torch.equal(cnell.nan_to_num(),
+                                                     tier0_out["nell"].nan_to_num())), card=smi)
+    if launches != 2 * T:
+        raise AssertionError(f"K1 launched {launches} times in the scaled pass, expected {2 * T}")
+    if scmss.shape != (T, BATCH, 2 * N) or scales.shape != (T, BATCH) or not finite.any():
+        raise AssertionError("the scaled filter's outputs have the wrong shape, or none is finite")
+    return nell, launches
+
+
+def phase_scms_nd(setups, outs, yss, smi):
+    """Prey–predator ``moment_filter_nd_scms`` with ``poly.predict_scms``
+    at N=3 (K2, s=6) and N=7 (nd_ldl + nd_ksolve + f64 eigh, s=28),
+    B=1024, on the first ``SCMS_ND_T`` steps of the ND phase's data,
+    through "auto": exactly 2T launches of each of the route's kernels
+    and none of the others, counted from 0 around each pass.  The gap to
+    the central filter of the same N over the same steps (its nell from
+    an uncounted re-run, its means from ``nd_main_path``) and both finite
+    shares are printed: measures.  Then the route's kernels on the
+    scaled moments of step T/2 (``nd_route_timing``).  Returns, by N, the
+    nell, the pass's record and the timing rows."""
+    from mfs_tpu_torch.ops.dispatch import fused_nd_kernel
+    T = SCMS_ND_T
+    out = {}
+    for N in SCMS_ND_ORDERS:
+        setup = setups[N]
+        mis, inds = setup[0], setup[1]
+        s = inds.shape[1]
+        kernels = ND_ROUTE_KERNELS[fused_nd_kernel(s, 2)]
+        zero_nd_counts()
+        (scmss, means, scales, nell), wall, peak = on_card(
+            lambda: run_nd_scms_filter(setup, yss[:T], "auto"))
+        counts = read_nd_counts()
+        _, _, cnell = run_nd_filter(setup, yss[:T], "auto")
+        cmeans = outs[N]["means"][:T]
+        finite = torch.isfinite(nell) & torch.isfinite(means).all(-1).all(0)
+        cfinite = torch.isfinite(cnell) & torch.isfinite(cmeans).all(-1).all(0)
+        both = finite & cfinite
+        gap = nell_gap(nell, cnell, both)
+        emit("scms_nd", N=N, s=s, T=T, B=ND_B, kernels=list(kernels), launches=counts,
+             wall_s=wall, ms_per_step=wall / T * 1e3, peak_mem_added_gb=peak,
+             finite_frac=finite.double().mean().item(),
+             finite_frac_central=cfinite.double().mean().item(), finite_in_both=int(both.sum()),
+             nell_max_rel_gap_to_central=gap[0], nell_median_rel_gap_to_central=gap[1],
+             means_max_abs_gap_to_central=(means - cmeans)[:, both].abs().max().item(), card=smi)
+        expected = {k: 2 * T if k in kernels else 0 for k in counts}
+        if counts != expected:
+            raise AssertionError(f"scaled N={N}: launches {counts}, expected {expected}")
+        if scmss.shape != (T, ND_B, mis.shape[0]) or scales.shape != (T, ND_B, 2) \
+                or not finite.any():
+            raise AssertionError("the scaled ND filter's outputs have the wrong shape")
+        rows = nd_route_timing("prey_predator_scaled", N, scmss[T // 2], mis, inds,
+                               wall / T * 1e3)
+        out[N] = dict(nell=nell, record=nd_pass("prey_predator_scaled", N, setup, counts, kernels),
+                      rows=rows)
+    return out
+
+
+def scms_1d_cpu(ys, threads):
+    """The main path's scaled filter on CPU tensors (K1's plain version);
+    run in a worker.  Returns (nell, seconds)."""
+    from mfs_tpu_torch.models.one_dim import benes_bernoulli
+    from mfs_tpu_torch.one_dim.filtering import moment_filter_scms
+    from mfs_tpu_torch.sde.transitions import sde_cond_moments_tme_normal
+    torch.set_num_threads(threads)
+    model = benes_bernoulli(N=N, device="cpu")
+    trans = sde_cond_moments_tme_normal(model.drift, model.dispersion, model.dt, 2, N)
+    ic, b = model.init_cond, ys.shape[1]
+    t0 = time.perf_counter()
+    nell = moment_filter_scms(trans.scms, trans.mean_var, model.measurement_cond_pdf,
+                              ic.scms.expand(b, 2 * N), ic.mean.expand(b),
+                              torch.sqrt(ic.variance).expand(b), torch.as_tensor(ys),
+                              eigh_impl="fused")[-1]
+    return nell.numpy(), time.perf_counter() - t0
+
+
+def start_scms_cpu_reference(pool, ys, yss):
+    """The 1D scaled filter's first ``CPU_SUBSET`` trials and each scaled
+    ND order's first ``SCMS_ND_CPU_SUBSET``, in the worker pool."""
+    pending = {N: pool.apply_async(nd_cpu_filter, (
+        N, yss[:SCMS_ND_T, :SCMS_ND_CPU_SUBSET].cpu().numpy(), 1, 2, True))
+        for N in SCMS_ND_ORDERS}
+    pending["d1"] = pool.apply_async(scms_1d_cpu, (ys[:, :CPU_SUBSET].cpu().numpy(), 1))
+    return pending
+
+
+def phase_scms_cpu_reference(scms_1d_nell, scms_nd, pending):
+    """The scaled filters re-run on the CPU through the plain versions,
+    at the central modes' limits: in 1D nell within rtol 1e-6 on >= 99%
+    of the trials finite in both, as ``kernel_path_vs_plain_path``; in ND
+    rtol 1e-8 on every trial and the same trials finite, as
+    ``nd_cpu_reference``."""
+    bad = []
+    nell, cpu_s = pending["d1"].get()
+    card = scms_1d_nell[:CPU_SUBSET].cpu()
+    nell = torch.as_tensor(nell)
+    both = torch.isfinite(nell) & torch.isfinite(card)
+    rel = ((nell - card).abs() / card.abs())[both]
+    share = (rel < 1e-6).double().mean().item()
+    emit("scms_cpu_reference", d=1, N=N, trials=CPU_SUBSET, T=T, finite_in_both=int(both.sum()),
+         max_rel_gap=rel.max().item(), median_rel_gap=rel.median().item(),
+         share_below_1e_6=share, cpu_seconds=cpu_s)
+    if not (both.sum() > 0.9 * CPU_SUBSET and share >= 0.99):
+        bad.append("1D")
+    for order in SCMS_ND_ORDERS:
+        fields, ok = nd_cpu_gap([pending[order].get()], scms_nd[order]["nell"])
+        emit("scms_cpu_reference", d=2, N=order, T=SCMS_ND_T, **fields)
+        if not ok:
+            bad.append(f"ND N={order}")
+    if bad:
+        raise AssertionError(f"the scaled filters on the card disagree with the CPU: {bad}")
+
+
+# ---------------------------------------------------------------------------
+# The 3D food chain (experiments/lotka_volterra_3d.py): d = 3, central
+# moments, poly TME-2, the moment filter against the Gauss–Hermite filter
+# and the EKF on the same trials
+# ---------------------------------------------------------------------------
+
+LV3D_ORDERS = (2, 3, 4)  # K2 at s=4 and s=10; nd_ldl + nd_ksolve + f64 eigh at s=20
+# One ensemble of 1,024 trials at every N.  N=4 ran first at B=256 (JAX ran
+# 32 trials): its pass peaked at 5.8 GB and took 1.7 s on an H100 (700 W),
+# which leaves room for the whole ensemble.
+LV3D_B = 1024
+LV3D_T = {2: 200, 3: 200, 4: 100}  # as the JAX rows of SUMMARY_lotka_volterra_3d.json
+LV3D_SUBSTEPS = 10  # Milstein sub-steps per observation (the model's own 100 is cut)
+LV3D_SEED = 4
+LV3D_GH = 7  # 343 sigma points
+LV3D_FINITE_MIN = 0.98  # JAX lost none of 64 trials (32 at N=4)
+LV3D_JAX_FACTOR = 1.5
+LV3D_NELL_RTOL = 1e-8  # "auto" against "refined"; ``nd_cpu_gap`` holds the CPU subset to it too
+LV3D_CPU_SUBSET = 16
+
+
+def lv3d_jax_rows():
+    """JAX's rows of ``experiments/SUMMARY_lotka_volterra_3d.json``: the
+    moment filter's "auto" rows by N and the baselines by method."""
+    rows = json.loads((ROOT / "experiments/SUMMARY_lotka_volterra_3d.json").read_text())["rows"]
+    return ({r["N"]: r for r in rows if r.get("eigh_impl") == "auto"},
+            {r["method"]: r for r in rows if "method" in r})
+
+
+def lv3d_scores(means, xs):
+    """Finite trials (every mean finite) and the mean absolute error of
+    the filtering means against the simulated paths over them and T."""
+    finite = torch.isfinite(means).all(-1).all(0)
+    err = (means - xs)[:, finite].abs().mean().item() if finite.any() else float("nan")
+    return finite, err
+
+
+def phase_lv3d_data(smi):
+    """One ensemble of ``LV3D_B`` food-chain paths and their Bernoulli
+    prey observations, simulated on the card from a seeded generator
+    (``LV3D_SUBSTEPS`` Milstein sub-steps an observation)."""
+    from mfs_tpu_torch.models.multi_dims import lotka_volterra_3d
+    B, T_ = LV3D_B, max(LV3D_T.values())
+    model = lotka_volterra_3d(np.zeros((1, 3), dtype=np.int64), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(LV3D_SEED)
+    (_, xss, yss), wall, peak = on_card(lambda: model.simulate(gen, B, LV3D_SUBSTEPS))
+    xss, yss = xss[:T_], yss[:T_]
+    emit("lv3d_data", B=B, T=T_, substeps=LV3D_SUBSTEPS, simulated_T=model.T, wall_s=wall,
+         peak_mem_added_gb=peak, state_range=[xss.min().item(), xss.max().item()],
+         y_mean=yss.mean().item(), card=smi)
+    if xss.shape != (T_, B, 3) or not bool(torch.isfinite(xss).all()):
+        raise AssertionError("the food-chain paths have the wrong shape or are not finite")
+    return xss, yss
+
+
+def phase_lv3d_moment(xss, yss, smi):
+    """The food chain's central filter (poly TME-2) at each N of
+    ``LV3D_ORDERS`` on the ensemble's ``LV3D_B`` trials and ``LV3D_T[N]``
+    steps, through "auto" (K2 at s=4 and s=10: 3 warps a trial; at s=20
+    nd_ldl + nd_ksolve, then cuSOLVER eigh of 3B 20x20 matrices) and
+    through "refined" (f64 Cholesky, solves, cuSOLVER eigh).  Each pass
+    runs with every count set to 0 just before and read just after:
+    "auto" launches each of its route's kernels exactly 2T times and no
+    other, "refined" none.  Per row: divergent trials, the mean absolute
+    error of the filtering means against the paths over the finite
+    trials, wall, peak memory.  Checks: "auto" keeps >= 98% of the
+    trials, its error is within 1.5x JAX's row at the same T, and its
+    nell agrees with "refined"'s to rtol 1e-8 on the trials finite in
+    both.  Returns the setups, the "auto" outputs and the passes'
+    records."""
+    from mfs_tpu_torch.ops.dispatch import fused_nd_kernel
+    jax_mf, _ = lv3d_jax_rows()
+    setups, outs, passes, bad = {}, {}, [], []
+    for N in LV3D_ORDERS:
+        B, T_ = LV3D_B, LV3D_T[N]
+        setups[N] = setup = nd_setup(N, "cuda", d=3)
+        z, s = setup[0].shape[0], setup[1].shape[1]
+        kernels = ND_ROUTE_KERNELS[fused_nd_kernel(s, 3)]
+        ys, xs = yss[:T_], xss[:T_]
+        nells = {}
+        for impl in ("auto", "refined"):
+            zero_nd_counts()
+            (cmss, means, nell), wall, _ = on_card(lambda: run_nd_filter(setup, ys, impl))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            counts = read_nd_counts()
+            finite, err = lv3d_scores(means, xs)
+            nells[impl] = torch.where(finite & torch.isfinite(nell), nell, float("nan"))
+            jax_row = jax_mf[N]
+            emit("lv3d_moment", N=N, s=s, z=z, nodes=s**3, T=T_, B=B, eigh_impl=impl,
+                 kernels=list(kernels) if impl == "auto" else [], launches=counts, wall_s=wall,
+                 trials_per_s=B / wall, ms_per_step=wall / T_ * 1e3,
+                 finite_frac=finite.double().mean().item(), divergent=int((~finite).sum()),
+                 mean_abs_err=err, jax_mean_abs_err=jax_row["mean_abs_err"], jax_T=jax_row["T"],
+                 jax_trials=jax_row["trials"], peak_mem_gb=peak, card=smi)
+            expected = {k: 2 * T_ if impl == "auto" and k in kernels else 0 for k in counts}
+            if counts != expected:
+                raise AssertionError(f"LV3D N={N} {impl}: launches {counts}, expected {expected}")
+            if cmss.shape != (T_, B, z) or means.shape != (T_, B, 3):
+                raise AssertionError("the food chain's outputs have the wrong shape")
+            if impl == "auto":
+                passes.append(nd_pass("lotka_volterra_3d", N, setup, counts, kernels))
+                outs[N] = dict(cmss=cmss, nell=nell, ms_per_step=wall / T_ * 1e3)
+                if finite.double().mean().item() < LV3D_FINITE_MIN:
+                    bad.append(f"N={N} finite_frac {finite.double().mean().item()}")
+                if jax_row["T"] != T_ or not err <= LV3D_JAX_FACTOR * jax_row["mean_abs_err"]:
+                    bad.append(f"N={N} mean_abs_err {err} (JAX {jax_row['mean_abs_err']}, "
+                               f"T={jax_row['T']})")
+        both = torch.isfinite(nells["auto"]) & torch.isfinite(nells["refined"])
+        gap = nell_gap(nells["auto"], nells["refined"], both)
+        emit("lv3d_nell_agreement", N=N, routes="auto vs refined", finite_in_both=int(both.sum()),
+             max_rel_gap=gap[0], median_rel_gap=gap[1],
+             max_abs_gap=(nells["auto"] - nells["refined"])[both].abs().max().item(),
+             rtol=LV3D_NELL_RTOL)
+        if not (both.any() and gap[0] <= LV3D_NELL_RTOL):
+            bad.append(f"N={N} auto vs refined nell {gap[0]}")
+    if bad:
+        raise AssertionError(f"3D food-chain checks failed: {bad}")
+    return setups, outs, passes
+
+
+def lv3d_baseline(method, ys):
+    """The GHF (``LV3D_GH``^3 points) or the EKF of
+    ``experiments/lotka_volterra_3d.py`` (Euler transition, Bernoulli prey
+    sensor), batch-first on ys (T, B, 1): means (T, B, 3)."""
+    from mfs_tpu_torch.filters.gaussian import ekf, sgp_filter
+    from mfs_tpu_torch.filters.sigma_points import SigmaPoints
+    from mfs_tpu_torch.models.multi_dims import lotka_volterra_3d
+    model = lotka_volterra_3d(np.zeros((1, 3), dtype=np.int64), device=ys.device)
+    ic, B = model.init_cond, ys.shape[1]
+
+    def cond(x, dt):
+        return x + model.drift(x) * dt, model.dispersion(x) ** 2 * dt
+
+    def meas(x):
+        p = model.emission(x[..., 0])
+        return p[..., None], (p * (1 - p))[..., None, None]
+
+    m0, v0 = ic.mean.expand(B, 3), ic.cov.expand(B, 3, 3)
+    if method == "ghf":
+        sgps = SigmaPoints.gauss_hermite(3, LV3D_GH, device=ys.device)
+        return sgp_filter(cond, meas, sgps, m0, v0, model.dt, ys)[0]
+    return ekf(cond, meas, m0, v0, model.dt, ys)[0]
+
+
+def phase_lv3d_gaussian(xss, yss, smi):
+    """The GHF and the EKF on the moment filter's trials (B=1024, T=200),
+    scored as the moment filter: each ``mean_abs_err`` within 1.5x JAX's
+    row."""
+    _, jax_base = lv3d_jax_rows()
+    B, T_ = LV3D_B, LV3D_T[2]
+    bad = []
+    for method in ("ghf", "ekf"):
+        means, wall, peak = on_card(lambda: lv3d_baseline(method, yss[:T_]))
+        finite, err = lv3d_scores(means, xss[:T_])
+        jax_row = jax_base[method]
+        emit("lv3d_gaussian", method=method, gh_order=LV3D_GH if method == "ghf" else None,
+             T=T_, B=B, wall_s=wall, peak_mem_added_gb=peak, divergent=int((~finite).sum()),
+             mean_abs_err=err, jax_mean_abs_err=jax_row["mean_abs_err"], jax_T=jax_row["T"],
+             card=smi)
+        if jax_row["T"] != T_ or not err <= LV3D_JAX_FACTOR * jax_row["mean_abs_err"]:
+            bad.append(f"{method} mean_abs_err {err}")
+    if bad:
+        raise AssertionError(f"3D food-chain baselines beyond 1.5 x JAX's rows: {bad}")
+
+
+def start_lv3d_cpu_reference(pool, yss):
+    """Each order's first ``LV3D_CPU_SUBSET`` trials through the plain
+    versions, one worker an order."""
+    return {N: pool.apply_async(nd_cpu_filter, (
+        N, yss[:LV3D_T[N], :LV3D_CPU_SUBSET].cpu().numpy(), 1, 3)) for N in LV3D_ORDERS}
+
+
+def phase_lv3d_cpu_reference(outs, pending):
+    """The CPU re-run against the card's "auto" pass: nell within rtol
+    1e-8 on every trial and the same trials finite."""
+    bad = []
+    for N in LV3D_ORDERS:
+        fields, ok = nd_cpu_gap([pending[N].get()], outs[N]["nell"])
+        emit("lv3d_cpu_reference", N=N, T=LV3D_T[N], **fields)
+        if not ok:
+            bad.append(N)
+    if bad:
+        raise AssertionError(f"the food chain on the card disagrees with the CPU at N={bad}")
 
 
 # ---------------------------------------------------------------------------
@@ -2573,6 +2980,7 @@ def main():
     phase_build()
     phase_eigh_batch_limit()
     xss, yss = phase_nd_data()
+    lv3d_xss, lv3d_yss = phase_lv3d_data(smi)
     model = benes_bernoulli(N=N)
     trans = sde_cond_moments_tme_normal(model.drift, model.dispersion, model.dt, 2, N)
     # The timed phases run first, with no other work on the host: the
@@ -2582,9 +2990,18 @@ def main():
     launches, ys, tier0_out = phase_main_path(model, trans, smi)
     phase_forced_rescue(model, trans, ys)
     phase_profile(model, trans)
-    setups, outs, nd_launches = phase_nd_main_path(smi, xss, yss)
-    nd_rows = phase_nd_timing(setups, outs)
+    scms_1d_nell, scms_1d_launches = phase_scms_1d(model, trans, ys, tier0_out, smi)
+    setups, outs, nd_passes = phase_nd_main_path(smi, xss, yss)
+    nd_rows = phase_nd_timing("prey_predator", setups, outs, ND_T)
     phase_nd_profile(setups)
+    scms_nd = phase_scms_nd(setups, outs, yss, smi)
+    lv3d_setups, lv3d_outs, lv3d_passes = phase_lv3d_moment(lv3d_xss, lv3d_yss, smi)
+    phase_lv3d_gaussian(lv3d_xss, lv3d_yss, smi)
+    nd_rows.update(phase_nd_timing("lotka_volterra_3d", lv3d_setups, lv3d_outs, LV3D_T))
+    for order, res in scms_nd.items():
+        nd_rows.update({(name, "prey_predator_scaled", order): row
+                        for name, row in res["rows"].items()})
+    nd_passes += lv3d_passes + [res["record"] for res in scms_nd.values()]
     mle_ys = phase_mle_data()
     mle_vals, mle_grad = phase_mle_grad(mle_ys, smi)
     with nccl_world() as (mesh, world_s):
@@ -2618,6 +3035,8 @@ def main():
             mle_cpu_rerun, (mle_ys[:, :MLE_CPU_TRIALS].cpu().numpy(), 1))
         pending = start_nd_cpu_reference(pool, yss)
         conv_pending = start_conv_cpu_reference(pool, conv, density_keep, xs_grid)
+        lv3d_pending = start_lv3d_cpu_reference(pool, lv3d_yss)
+        scms_pending = start_scms_cpu_reference(pool, ys, yss)
         phase_kernel_vs_plain()
         phase_k1_grad_vs_plain()
         phase_rescue_tiers(model, trans, ys, tier0_out)
@@ -2625,6 +3044,8 @@ def main():
         phase_nd_kernels_vs_plain()
         phase_nd_k_vs_plain()
         phase_nd_cpu_reference(outs, pending)
+        phase_lv3d_cpu_reference(lv3d_outs, lv3d_pending)
+        phase_scms_cpu_reference(scms_1d_nell, scms_nd, scms_pending)
         phase_mle_cpu_reference(mle_grad, trace_p, mle_pending)
         phase_fig4_cpu_reference(fig4_pending, pss, moment, ghf)
         phase_conv_cpu_reference(conv_pending, central, density_keep)
@@ -2638,8 +3059,8 @@ def main():
     # pass's launches).  "launches" adds every Fig-4 launch (the five
     # passes and scorings), the convergence study's (28 passes), the
     # density recovery's (a characteristic function an N), the sharded
-    # pass's and gradient's, the counted pass's and the timed and traced
-    # passes' to the 1D main path's.
+    # pass's and gradient's, the counted pass's, the timed and traced
+    # passes' and the scaled filter's to the 1D main path's.
     mle_row.update(launches=2 * MLE_T + mle_launches)
     fig4_rows[0].update(launches=moment[8]["launches"])
     fig4_rows[1].update(launches=scoring_launches[15])
@@ -2649,7 +3070,8 @@ def main():
           "source": "mfs_tpu_torch/csrc/quadrature_1d.cu",
           "replaces": "mfs_tpu/ops/pallas_quadrature.py:95",
           "launches": launches + fig4_launches + conv_launches + density_launches
-          + mesh_launches + flops_launches["quadrature_1d"] + profiling_launches,
+          + mesh_launches + flops_launches["quadrature_1d"] + profiling_launches
+          + scms_1d_launches,
           **{k: timing[0][k] for k in keys}, "library_ms": None,
           "by_batch": [{k: row[k] for k in ("n", "B") + keys} for row in timing]
           + [{k: mle_row[k] for k in ("n", "B") + keys + ("launches", "grad_ms", "grad_lu_ms")}]
@@ -2658,10 +3080,12 @@ def main():
               "launches", "max_abs_err_cf", "trials_beyond_1e_9")}]
           + [{k: conv_row[k] for k in ("n", "B") + keys + (
               "launches", "max_abs_err_cf", "trials_beyond_1e_9")}]}
-    # Each ND kernel's launches over every ND pass and the counted steps of
-    # ``flops``; its times and bound at the largest basis it ran on (K2:
-    # N=3; the pair: N=11), each pass's in "by_order".  The pair also replaces K3 (``_nd_k_kernel``), which
-    # computes the same K_m in one program on the TPU.
+    # Each ND kernel's launches over every ND pass (prey–predator central
+    # and scaled, the 3D food chain) and the counted steps of ``flops``;
+    # its times and bound at the largest basis it ran on (K2: the food
+    # chain's N=3, s=10, d=3; the pair: prey–predator's N=11, s=66), each
+    # pass's in "by_order".  The pair also replaces K3 (``_nd_k_kernel``),
+    # which computes the same K_m in one program on the TPU.
     nd = []
     for name, replaces, also in (
             ("K2", "mfs_tpu/ops/pallas_quadrature_nd.py:70", []),
@@ -2671,16 +3095,18 @@ def main():
             ("nd_ksolve", "mfs_tpu/ops/pallas_quadrature_nd.py:471",
              ["mfs_tpu/ops/pallas_quadrature_nd.py:516",
               "mfs_tpu/ops/pallas_quadrature_nd.py:271"])):
-        orders = [N for N in ND_ORDERS if name in nd_launches[N]]
-        top = max(orders, key=lambda N: setups[N][1].shape[1])
+        ran = [p for p in nd_passes if name in p["launches"]]
+        top = max(ran, key=lambda p: (p["s"], p["d"]))
+        row = lambda p: nd_rows[name, p["model"], p["N"]]
         nd.append({"name": "nd_eigh" if name == "K2" else name, "route": "cuda",
                    "source": "mfs_tpu_torch/csrc/quadrature_nd.cu", "replaces": replaces,
-                   "also_replaces": also, "launches": sum(nd_launches[N][name] for N in orders)
+                   "also_replaces": also, "launches": sum(p["launches"][name] for p in ran)
                    + flops_launches["nd_eigh" if name == "K2" else name],
-                   **{k: nd_rows[name, top][k] for k in keys}, "library_ms": None,
-                   "by_order": [{"N": N, "s": setups[N][1].shape[1],
-                                 "launches": nd_launches[N][name],
-                                 **{k: nd_rows[name, N][k] for k in keys}} for N in orders]})
+                   **{k: row(top)[k] for k in keys}, "library_ms": None,
+                   "by_order": [{"model": p["model"], "N": p["N"], "d": p["d"], "s": p["s"],
+                                 "launches": p["launches"][name], "B": row(p)["B"],
+                                 **{k: row(p)[k] for k in keys + ("f64_library_path_ms",)}}
+                                for p in ran]})
     print(json.dumps({"kernels": [k1] + nd}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

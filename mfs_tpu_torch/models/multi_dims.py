@@ -62,17 +62,19 @@ def _model(dt, T, gs, drift, sigma, device) -> ModelND:
         return torch.diag_embed(sigma * x)
 
     def simulate(generator: torch.Generator, nsamples: int = 1, integration_steps: int = 100,
-                 dws: Array = None):
+                 dws: Array = None, x0s: Array = None):
         """Milstein simulation of ``nsamples`` paths over T observation
         intervals of ``integration_steps`` sub-steps each.  Returns
         ``x0s (n, d)``, ``xss (T, n, d)`` and ``yss (T, n, 1)``.
 
         ``generator`` lives on the model's device.  ``dws (T,
-        integration_steps, n, d)``, when given, are the Brownian
-        increments (a test feeds its own).
+        integration_steps, n, d)`` and ``x0s (n, d)``, when given, are
+        the Brownian increments and the initial states (a test feeds the
+        JAX package's own).
         """
         ddt = dt / integration_steps
-        x0s = gs.sampler(generator, nsamples)
+        if x0s is None:
+            x0s = gs.sampler(generator, nsamples)
         d = x0s.shape[-1]
         x = x0s
         xss = []

@@ -784,3 +784,89 @@ def test_trial_mesh_cuda_raises_without_a_gpu(cuda):
         cwd=root, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""}, capture_output=True,
         text=True, timeout=120)
     assert p.returncode != 0 and "needs a GPU" in p.stderr
+
+
+# ---------------------------------------------------------------------------
+# The 3D food chain (d = 3) and the scaled-moment filters on the card
+# ---------------------------------------------------------------------------
+
+from mfs_tpu_torch.models.multi_dims import lotka_volterra_3d  # noqa: E402
+from mfs_tpu_torch.multi_dims.filtering import moment_filter_nd_scms  # noqa: E402
+from mfs_tpu_torch.one_dim.filtering import moment_filter_scms  # noqa: E402
+
+
+@pytest.mark.parametrize("N, kernels", [(3, ("EIGH_LAUNCHES",)),
+                                        (4, ("LDL_LAUNCHES", "KSOLVE_LAUNCHES"))])
+def test_lv3d_filter_on_card_matches_cpu_plain_path(cuda, N, kernels):
+    """The 3D food chain's central filter, poly TME-2, B = 8, T = 5,
+    through K2 at d = 3, s = 10 (N=3, 1,000 nodes a trial) or nd_ldl +
+    nd_ksolve + cuSOLVER eigh at d = 3, s = 20 (N=4, 8,000 nodes) on the
+    card vs the same filter on the CPU (plain versions): nell rtol 1e-10,
+    as the 2D filter's test, each of the route's kernels launched once a
+    quadrature and no other."""
+    B, T = 8, 5
+    mis = nd_mi.generate_graded_lexico_multi_indices(3, 2 * N - 1)
+    inds = nd_mi.gram_and_hankel_indices_graded_lexico(N, 3)
+    ys = np.random.RandomState(N).binomial(1, 0.5, (T, B, 1)).astype(np.float64)
+    nells = {}
+    for dev in ("cpu", "cuda"):
+        model = lotka_volterra_3d(mis, device=dev)
+        poly = poly_tme_nd(model.drift, model.dispersion, model.dt, 2, mis, 2, 1, device=dev)
+        ic = model.init_cond
+        before = _launches()
+        _, _, nell = moment_filter_nd_cms(
+            poly.cms, poly.mean, model.measurement_cond_pdf, torch.as_tensor(ys, device=dev),
+            (mis, inds), ic.cms.expand(B, -1), ic.mean.expand(B, 3),
+            eigh_impl="auto" if dev == "cuda" else "fused", predict_fn=poly.predict_cms)
+        nells[dev] = nell.cpu()
+        ran = {k: v - before[k] for k, v in _launches().items()}
+        assert ran == {k: 2 * T if dev == "cuda" and k in kernels else 0 for k in _COUNTERS}
+    assert bool(torch.isfinite(nells["cuda"]).all())
+    np.testing.assert_allclose(nells["cuda"].numpy(), nells["cpu"].numpy(), rtol=1e-10)
+
+
+@pytest.mark.parametrize("d, N, kernels", [(1, 4, ()), (2, 3, ("EIGH_LAUNCHES",)),
+                                           (2, 5, ("LDL_LAUNCHES", "KSOLVE_LAUNCHES"))])
+def test_scms_filters_on_card_match_cpu_plain_path(cuda, d, N, kernels):
+    """The scaled-central filters on the card vs the same filters on the
+    CPU (plain versions), B = 8: Beneš N=4, T=20, TME-2 Normal closure,
+    through K1 (d = 1); prey–predator N=3 (K2, s = 6) and N=5 (nd_ldl +
+    nd_ksolve + cuSOLVER eigh, s = 15), T=20, poly TME-2's
+    ``predict_scms`` (d = 2).  nell and the scales rtol 1e-10, as the
+    central filters' tests; each of the route's kernels launched once a
+    quadrature and no other."""
+    B, T = 8, 20
+    rng = np.random.RandomState(10 + N)
+    shape = (T, B) if d == 1 else (T, B, 1)
+    ys = rng.binomial(1, 0.5, shape).astype(np.float64)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        y = torch.as_tensor(ys, device=dev)
+        k1_before, before = qk.LAUNCHES, _launches()
+        if d == 1:
+            model = benes_bernoulli(N=N, device=dev)
+            trans = sde_cond_moments_tme_normal(model.drift, model.dispersion, model.dt, 2, N)
+            ic = model.init_cond
+            _, _, scales, nell = moment_filter_scms(
+                trans.scms, trans.mean_var, model.measurement_cond_pdf,
+                ic.scms.expand(B, 2 * N), ic.mean.expand(B), torch.sqrt(ic.variance).expand(B),
+                y, eigh_impl="fused")
+            assert qk.LAUNCHES - k1_before == (2 * T if dev == "cuda" else 0)
+        else:
+            mis = nd_mi.generate_graded_lexico_multi_indices(2, 2 * N - 1)
+            inds = nd_mi.gram_and_hankel_indices_graded_lexico(N, 2)
+            model = prey_predator(mis, device=dev)
+            poly = poly_tme_nd(model.drift, model.dispersion, model.dt, 2, mis, 2, 1, device=dev)
+            ic = model.init_cond
+            scale0 = torch.sqrt(torch.diagonal(ic.cov))
+            _, _, scales, nell = moment_filter_nd_scms(
+                poly.scms, poly.mean_var, model.measurement_cond_pdf, y, (mis, inds),
+                (ic.cms / monomials_nd(scale0, mis)).expand(B, -1), ic.mean.expand(B, 2),
+                scale0.expand(B, 2), eigh_impl="auto" if dev == "cuda" else "fused",
+                predict_fn=poly.predict_scms)
+        ran = {k: v - before[k] for k, v in _launches().items()}
+        assert ran == {k: 2 * T if dev == "cuda" and k in kernels else 0 for k in _COUNTERS}
+        outs[dev] = (nell.cpu(), scales.cpu())
+    assert bool(torch.isfinite(outs["cuda"][0]).all())
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10)
