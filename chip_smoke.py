@@ -73,6 +73,7 @@ import numpy as np
 import torch
 
 from mfs_tpu_torch.ops.flops import k1_flops, k2_flops, ksolve_flops, ldl_flops
+from mfs_tpu_torch.utils import profiling
 
 N = 15
 T = 100
@@ -93,18 +94,27 @@ FP64_TC_FLOP_PER_S = 67e12
 SPIN_CYCLES = 200_000_000  # ~0.1 s at the H100's ~1.98 GHz boost clock
 
 
-_EIGH_SEEN = {"masked": 0}
+# The registry's launch counter of each hand-written kernel, by the name
+# the smoke's lines give it.
+KERNEL_COUNTERS = {"K1": "k1", "K2": "nd_eigh", "nd_ldl": "nd_ldl", "nd_ksolve": "nd_ksolve"}
 
 
 def emit(phase, **fields):
     """One JSON line.  ``eigh_masked``: matrices the f64 eigh route
     (``ops/eigh.py``, behind "xla"/"refined", rescue tier 2 and the ND
     routes after the K-builder) returned NaN because cuSOLVER did not
-    converge on them, since the previous line."""
-    from mfs_tpu_torch.ops import eigh
-    masked = eigh.NONCONVERGED - _EIGH_SEEN["masked"]
-    _EIGH_SEEN["masked"] = eigh.NONCONVERGED
+    converge on them, since the smoke started (the counter
+    ``eigh.nonconverged``)."""
+    masked = profiling.counters().get("eigh.nonconverged", 0)
     print(json.dumps({"phase": phase, **fields, "eigh_masked": masked}), flush=True)
+
+
+def kernel_launches(before=None):
+    """Launches of each hand-written kernel (``KERNEL_COUNTERS``) counted by
+    the registry, less ``before``'s (an earlier return of this function)."""
+    counts = profiling.counters()
+    now = {k: counts.get("kernel.launches." + c, 0) for k, c in KERNEL_COUNTERS.items()}
+    return now if before is None else {k: v - before[k] for k, v in now.items()}
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -373,7 +383,6 @@ def finite_mask(out):
 
 def phase_main_path(model, trans, smi):
     """The rescued N=15 pipeline on the card, counted launches and all."""
-    from mfs_tpu_torch.ops import quadrature_kernel as qk
     from mfs_tpu_torch.parallel.ensemble import rescue_diverged
 
     # Measurements from 8 simulated paths tiled over the batch, as the
@@ -397,7 +406,7 @@ def phase_main_path(model, trans, smi):
         masks.append(mask.cpu().numpy())
         return mask
 
-    qk.LAUNCHES = 0
+    launched_before = kernel_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     merged, finite, rescued = rescue_diverged(
@@ -405,7 +414,7 @@ def phase_main_path(model, trans, smi):
         bucket=TIER1_BUCKET)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = qk.LAUNCHES
+    launches = kernel_launches(launched_before)["K1"]
 
     lost = int((~masks[0]).sum())
     per_tier = []
@@ -468,7 +477,6 @@ def phase_forced_rescue(model, trans, ys):
     the first FORCED_LOST trials of tier 0 marked lost, so that tier 1
     runs in two 512-trial buckets: K1 must launch 2T x (1 + 2) times, the
     spliced nell must be tier 1's own and every other trial tier 0's."""
-    from mfs_tpu_torch.ops import quadrature_kernel as qk
     from mfs_tpu_torch.parallel.ensemble import rescue_diverged
     tier0, tier1, tier2 = make_runners(model, trans)
     outs = []
@@ -481,14 +489,14 @@ def phase_forced_rescue(model, trans, ys):
         outs.append(out)
         return mask
 
-    qk.LAUNCHES = 0
+    launched_before = kernel_launches()
     t0 = time.perf_counter()
     merged, finite, rescued = rescue_diverged(
         tier0, [tier1, tier2], ys, finite_fn, {"cms_last": 0, "nell": 0},
         bucket=TIER1_BUCKET)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = qk.LAUNCHES
+    launches = kernel_launches(launched_before)["K1"]
     buckets1 = -(-FORCED_LOST // TIER1_BUCKET)
     out0, out1 = outs[0], outs[1]
     kept1 = finite_mask(out1)[:FORCED_LOST]
@@ -894,13 +902,13 @@ def phase_nd_main_path(smi, xss, yss):
         s = setup[1].shape[1]
         kernels = ND_ROUTE_KERNELS[fused_nd_kernel(s, 2)]
         torch.cuda.reset_peak_memory_stats()
-        zero_nd_counts()
+        launched_before = kernel_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cmss, means, nell = run_nd_filter(setup, yss[:T], "auto")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = read_nd_counts()
+        counts = kernel_launches(launched_before)
         passes.append(nd_pass("prey_predator", N, setup, counts, kernels))
         finite = torch.isfinite(nell) & torch.isfinite(means).all(-1).all(0)
         err = (means - xss[:T])[:, finite].abs().mean().item() if finite.any() else float("nan")
@@ -930,19 +938,6 @@ def nd_pass(label, N, setup, counts, kernels):
     inds = setup[1]
     return dict(model=label, N=N, d=inds.shape[0] - 1, s=inds.shape[1],
                 launches={k: counts[k] for k in kernels})
-
-
-def zero_nd_counts():
-    from mfs_tpu_torch.ops import quadrature_kernel as qk
-    from mfs_tpu_torch.ops import quadrature_nd_kernel as qnd
-    qk.LAUNCHES = qnd.EIGH_LAUNCHES = qnd.LDL_LAUNCHES = qnd.KSOLVE_LAUNCHES = 0
-
-
-def read_nd_counts():
-    from mfs_tpu_torch.ops import quadrature_kernel as qk
-    from mfs_tpu_torch.ops import quadrature_nd_kernel as qnd
-    return {"K1": qk.LAUNCHES, "K2": qnd.EIGH_LAUNCHES, "nd_ldl": qnd.LDL_LAUNCHES,
-            "nd_ksolve": qnd.KSOLVE_LAUNCHES}
 
 
 def save_nd_fates(N, ys, finite):
@@ -1173,13 +1168,12 @@ def phase_scms_1d(model, trans, ys, tier0_out, smi):
     data) on the trials finite in both: measures, not limits.  Returns
     its nell and K1's launches."""
     from mfs_tpu_torch.one_dim.filtering import moment_filter_cms, moment_filter_scms
-    from mfs_tpu_torch.ops import quadrature_kernel as qk
     ic = model.init_cond
-    qk.LAUNCHES = 0
+    launched_before = kernel_launches()
     (scmss, means, scales, nell), wall, peak = on_card(lambda: moment_filter_scms(
         trans.scms, trans.mean_var, model.measurement_cond_pdf, ic.scms.expand(BATCH, 2 * N),
         ic.mean.expand(BATCH), torch.sqrt(ic.variance).expand(BATCH), ys, eigh_impl="fused"))
-    launches = qk.LAUNCHES
+    launches = kernel_launches(launched_before)["K1"]
     _, cmeans, cnell = moment_filter_cms(
         trans.cms, trans.mean, model.measurement_cond_pdf, ic.cms.expand(BATCH, 2 * N),
         ic.mean.expand(BATCH), ys, eigh_impl="fused")
@@ -1223,10 +1217,10 @@ def phase_scms_nd(setups, outs, yss, smi):
         mis, inds = setup[0], setup[1]
         s = inds.shape[1]
         kernels = ND_ROUTE_KERNELS[fused_nd_kernel(s, 2)]
-        zero_nd_counts()
+        launched_before = kernel_launches()
         (scmss, means, scales, nell), wall, peak = on_card(
             lambda: run_nd_scms_filter(setup, yss[:T], "auto"))
-        counts = read_nd_counts()
+        counts = kernel_launches(launched_before)
         _, _, cnell = run_nd_filter(setup, yss[:T], "auto")
         cmeans = outs[N]["means"][:T]
         finite = torch.isfinite(nell) & torch.isfinite(means).all(-1).all(0)
@@ -1388,10 +1382,10 @@ def phase_lv3d_moment(xss, yss, smi):
         ys, xs = yss[:T_], xss[:T_]
         nells = {}
         for impl in ("auto", "refined"):
-            zero_nd_counts()
+            launched_before = kernel_launches()
             (cmss, means, nell), wall, _ = on_card(lambda: run_nd_filter(setup, ys, impl))
             peak = torch.cuda.max_memory_allocated() / 1e9
-            counts = read_nd_counts()
+            counts = kernel_launches(launched_before)
             finite, err = lv3d_scores(means, xs)
             nells[impl] = torch.where(finite & torch.isfinite(nell), nell, float("nan"))
             jax_row = jax_mf[N]
@@ -1574,13 +1568,12 @@ def phase_mle_grad(ys, smi):
     launches exactly 2T times on "fused" and never on "refined"; per trial
     finite in both, the gradients agree to rtol 1e-6.  Returns the
     kernel route's (values, gradients)."""
-    from mfs_tpu_torch.ops import quadrature_kernel as qk
     out, fields = {}, {}
     for impl in ("fused", "refined"):
         nell = mle_objective(ys, impl)
         torch.cuda.reset_peak_memory_stats()
         mem0 = torch.cuda.memory_allocated()
-        qk.LAUNCHES = 0
+        launched_before = kernel_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         vals, g = mle_value_and_grad(nell, mle_p0(MLE_B, "cuda"))
@@ -1588,7 +1581,7 @@ def phase_mle_grad(ys, smi):
         wall = time.perf_counter() - t0
         out[impl] = (vals, g)
         finite = torch.isfinite(vals) & torch.isfinite(g).all(-1)
-        fields[impl] = dict(wall_s=wall, grad_trials_per_s=MLE_B / wall, k1_launches=qk.LAUNCHES,
+        fields[impl] = dict(wall_s=wall, grad_trials_per_s=MLE_B / wall, k1_launches=kernel_launches(launched_before)["K1"],
                             finite_trials=int(finite.sum()),
                             peak_mem_added_gb=(torch.cuda.max_memory_allocated() - mem0) / 1e9)
     (vf, gf), (vr, gr) = out["fused"], out["refined"]
@@ -1616,7 +1609,6 @@ def phase_mle(ys, smi):
     stays finite sees it rise from one step to the next (Armijo).
     Returns each step's parameters of the first ``MLE_CPU_TRIALS`` trials."""
     from mfs_tpu_torch.estimation import lbfgs_batched
-    from mfs_tpu_torch.ops import quadrature_kernel as qk
     nell = mle_objective(ys, "fused")
     evals, first, per_step, trace_f, trace_p = [0], [], [], [], []
 
@@ -1634,14 +1626,14 @@ def phase_mle(ys, smi):
 
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
-    qk.LAUNCHES = 0
+    launched_before = kernel_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     P, info = lbfgs_batched(objective, mle_p0(MLE_B, "cuda"), max_steps=MLE_STEPS,
                             chunk_steps=MLE_STEPS, callback=callback)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = qk.LAUNCHES
+    launches = kernel_launches(launched_before)["K1"]
     f = torch.stack(first + trace_f)  # (steps + 1, B)
     kept = torch.isfinite(f[1:]) & torch.isfinite(f[:-1])
     rises = (f[1:] > f[:-1]) & kept
@@ -1772,9 +1764,9 @@ def phase_k1_grad_vs_plain():
                 rows.append(torch.cat([grads[0], grads[1][:, None], grads[2][:, None]], -1))
             return torch.stack(rows, 1).to("cuda")  # (B, 2n, 2n + 2)
 
-        before = qk.LAUNCHES
+        before = kernel_launches()
         J = jacobian("cuda")
-        launched = qk.LAUNCHES - before
+        launched = kernel_launches(before)["K1"]
         Jp = jacobian("cpu")
         both = torch.isfinite(J).flatten(1).all(-1) & torch.isfinite(Jp).flatten(1).all(-1)
         gap = ((J - Jp).flatten(1).abs().amax(-1) / Jp.flatten(1).abs().amax(-1))[both]
@@ -1886,7 +1878,6 @@ def phase_ensemble(model, trans, ys, tier0_out, mesh, world_s, smi):
     are equal.  Returns K1's launches."""
     from torch.distributed.tensor import Shard
     from mfs_tpu_torch.one_dim.filtering import moment_filter_cms
-    from mfs_tpu_torch.ops import quadrature_kernel as qk
     from mfs_tpu_torch.parallel import run_ensemble_filter
     ic = model.init_cond
 
@@ -1895,10 +1886,10 @@ def phase_ensemble(model, trans, ys, tier0_out, mesh, world_s, smi):
                                  init[1], y, eigh_impl="fused")
 
     init = (ic.cms.expand(BATCH, 2 * N).contiguous(), ic.mean.expand(BATCH).contiguous())
-    qk.LAUNCHES = 0
+    launched_before = kernel_launches()
     (cmss, means, nell), wall, peak = on_card(
         lambda: run_ensemble_filter(filter_fn, init, ys, mesh))
-    launches = qk.LAUNCHES
+    launches = kernel_launches(launched_before)["K1"]
     out = {"cms_last": cmss.to_local()[-1], "nell": nell.to_local()}
     fin, fin0 = finite_mask(out), finite_mask(tier0_out)
     both = fin & fin0
@@ -1929,7 +1920,6 @@ def phase_sharded_grad(mle_ys, vals, grads, mesh, smi):
     alone, by CUDA events.  Returns K1's launches (2T: the forward; the
     backward launches none)."""
     import torch.distributed as dist
-    from mfs_tpu_torch.ops import quadrature_kernel as qk
     from mfs_tpu_torch.parallel import sharded_nell_grad
     finite = torch.isfinite(vals) & torch.isfinite(grads).all(-1)
     ys = mle_ys[:, finite].contiguous()
@@ -1938,9 +1928,9 @@ def phase_sharded_grad(mle_ys, vals, grads, mesh, smi):
     def nell_fn(th, y):
         return mle_objective(y, "fused")(th.expand(y.shape[1], 2))
 
-    qk.LAUNCHES = 0
+    launched_before = kernel_launches()
     (loss, grad), wall, peak = on_card(lambda: sharded_nell_grad(nell_fn, theta, ys, mesh))
-    launches = qk.LAUNCHES
+    launches = kernel_launches(launched_before)["K1"]
     ref_loss, ref_grad = vals[finite].mean(), grads[finite].mean(0)
     loss_rel = ((loss - ref_loss).abs() / ref_loss.abs()).item()
     grad_rel = ((grad - ref_grad).abs() / ref_grad.abs()).max().item()
@@ -1967,23 +1957,20 @@ def phase_flops(model, trans, ys, setups, smi):
     kernel's breakdown key must equal its launches x B x its per-trial
     count (K2 at one sweep a dimension, a flagged lower bound).  Returns
     the launches of each kernel in this phase."""
-    from mfs_tpu_torch.ops import quadrature_kernel as qk
-    from mfs_tpu_torch.ops import quadrature_nd_kernel as ndk
     from mfs_tpu_torch.ops.flops import count_flops
     tier0 = make_runners(model, trans)[0]
     nd_ys = torch.ones((FLOPS_ND_STEPS, ND_B, 1), dtype=torch.float64, device="cuda")
     passes = [("main_path", N, T, BATCH, lambda: tier0(ys))] + [
         (f"nd_N{n}", n, FLOPS_ND_STEPS, ND_B, lambda n=n: run_nd_filter(setups[n], nd_ys, "auto"))
         for n in (3, 7)]
-    counters = {"quadrature_1d": "LAUNCHES", "nd_eigh": "EIGH_LAUNCHES",
-                "nd_ldl": "LDL_LAUNCHES", "nd_ksolve": "KSOLVE_LAUNCHES"}
-    modules = {"quadrature_1d": qk, "nd_eigh": ndk, "nd_ldl": ndk, "nd_ksolve": ndk}
+    counters = {"quadrature_1d": "K1", "nd_eigh": "K2", "nd_ldl": "nd_ldl",
+                "nd_ksolve": "nd_ksolve"}
     total_launches, bad = {k: 0 for k in counters}, []
     for name, order, steps, B, run in passes:
-        for k, attr in counters.items():
-            setattr(modules[k], attr, 0)
+        before = kernel_launches()
         r, wall, _ = on_card(lambda: count_flops(run))
-        launches = {k: getattr(modules[k], attr) for k, attr in counters.items()}
+        launched = kernel_launches(before)
+        launches = {k: launched[label] for k, label in counters.items()}
         s = setups[order][1].shape[1] if name != "main_path" else order
         per_trial = {"quadrature_1d": k1_flops(order)[0], "nd_eigh": k2_flops(s, 2, [1, 1]),
                      "nd_ldl": ldl_flops(s), "nd_ksolve": ksolve_flops(s, 2)}
@@ -2012,10 +1999,9 @@ def phase_profiling(model, trans, ys, tier0_out, smi):
     must equal ``main_path``'s tier 0) and ``trace`` around two of its
     steps: the Chrome trace must exist and name K1's kernel (the profiler
     has kept 3 or 4 of the 4 launches' events).  Returns K1's launches."""
-    from mfs_tpu_torch.ops import quadrature_kernel as qk
     from mfs_tpu_torch.utils import timed, trace
     tier0 = make_runners(model, trans)[0]
-    qk.LAUNCHES = 0
+    launched_before = kernel_launches()
     best, out = timed(tier0, ys, reps=2, warmup=False)
     same = all(torch.equal(out[k].nan_to_num(), tier0_out[k].nan_to_num()) for k in out)
     log_dir = ROOT / "chiprun_out" / "profile_trace"
@@ -2023,7 +2009,7 @@ def phase_profiling(model, trans, ys, tier0_out, smi):
     with trace(str(log_dir)):
         tier0(ys[:TRACE_STEPS])
     trace_s = time.perf_counter() - t0
-    launches = qk.LAUNCHES
+    launches = kernel_launches(launched_before)["K1"]
     path = log_dir / "trace.json"
     events = json.loads(path.read_text())["traceEvents"] if path.exists() else []
     k1_events = [e for e in events if "quadrature_1d_kernel" in e.get("name", "")
@@ -2259,7 +2245,6 @@ def phase_fig4_moment(ys, smi):
     jitter 1e-8 in 512-trial buckets; tier 2: the f64 ``stable=True``
     path on the card) with these runners.  Returns, by N, the merged
     outputs, the finite mask, the tier-0 nell and K1's launches."""
-    from mfs_tpu_torch.ops import quadrature_kernel as qk
     from mfs_tpu_torch.parallel.ensemble import rescue_diverged
     out = {}
     for N in FIG4_NS:
@@ -2278,11 +2263,11 @@ def phase_fig4_moment(ys, smi):
             masks.append(fig4_finite(res).cpu().numpy())
             return masks[-1]
 
-        qk.LAUNCHES = 0
+        launched_before = kernel_launches()
         (merged, finite, rescued), wall, peak = on_card(lambda: rescue_diverged(
             run_fast, [tier1, tier2], ys, finite_fn, {"cmss": 1, "means": 1, "nell": 0},
             bucket=TIER1_BUCKET))
-        launches = qk.LAUNCHES
+        launches = kernel_launches(launched_before)["K1"]
         buckets1 = -(-int((~masks[0]).sum()) // TIER1_BUCKET)
         emit("fig4_moment", N=N, B=FIG4_B, T=T, tme_order=FIG4_TME_ORDER, wall_s=wall,
              peak_mem_added_gb=peak, finite_frac_tier0=float(masks[0].mean()),
@@ -2381,7 +2366,6 @@ def phase_fig4_scores(pss, xs_grid, zs, moment, ghf, pf, smi):
     moment filter's ``mean_abs_err`` and ``cf_sup`` strictly fall over N;
     every row is within 1.5 x JAX's; the moment filter beats the PF at
     N >= 8 and the GHF at N >= 5.  Returns K1's scoring launches by N."""
-    from mfs_tpu_torch.ops import quadrature_kernel as qk
     t0 = time.perf_counter()
     re_t, im_t, means_t = (a.transpose(0, 1) for a in true_cf(pss, xs_grid, zs))  # (B, T, ...)
     cf_true = (re_t, im_t)
@@ -2392,9 +2376,9 @@ def phase_fig4_scores(pss, xs_grid, zs, moment, ghf, pf, smi):
     rows, launches = {}, {}
     for N in FIG4_NS:
         res = moment[N]["merged"]
-        before = qk.LAUNCHES
+        before = kernel_launches()
         cf = moment_cf(res["cmss"], zs, res["means"])
-        launches[N] = qk.LAUNCHES - before
+        launches[N] = kernel_launches(before)["K1"]
         rows[N] = dict(metrics(cf, cf_true, res["means"].T, means_t, moment[N]["finite"], zs),
                        jax=jax_mf[N])
     m, v, _ = ghf
@@ -2655,16 +2639,15 @@ def phase_conv_moment(data, smi):
     N <= ``CONV_RAW_CLEAN_N``; central ``abs_mean_err`` strictly falling
     in N; every row's mean and variance errors within 1.5 x JAX's.
     Returns the passes' outputs the later phases read."""
-    from mfs_tpu_torch.ops import quadrature_kernel as qk
     jax_rows, _ = conv_jax_rows()
     kept, launches_all, bad = {}, 0, []
     keys = ("abs_mean_err", "abs_var_err")
     for mode in ("central", "raw"):
         for N in CONV_NS:
-            qk.LAUNCHES = 0
+            launched_before = kernel_launches()
             (means, variances, nell, cmss), wall, peak = on_card(
                 lambda: conv_filter(N, mode, data["ys"]))
-            launches = qk.LAUNCHES
+            launches = kernel_launches(launched_before)["K1"]
             launches_all += launches
             row, finite = conv_scores(means, variances, data["kf_m"], data["kf_v"])
             jax_row = jax_rows[N, mode]
@@ -2726,12 +2709,11 @@ def phase_conv_taylor(data, central, smi):
     means to 1e-10 on the CPU)."""
     from mfs_tpu_torch.one_dim.filtering import moment_filter_taylor
     from mfs_tpu_torch.one_dim.moments import raw_to_central
-    from mfs_tpu_torch.ops import quadrature_kernel as qk
     from mfs_tpu_torch.utils.gaussian import normal_raw_moments_all
     F, Q = conv_transition()
     N, ys = CONV_TAYLOR_N, data["ys"]
     zero = torch.zeros(ys.shape[1], dtype=ys.dtype, device=ys.device)
-    qk.LAUNCHES = 0
+    launched_before = kernel_launches()
     (cmss, means, nell), wall, peak = on_card(lambda: moment_filter_taylor(
         lambda x, m: normal_raw_moments_all(F * x - m, Q, 2 * N), lambda x: F * x, conv_meas,
         raw_to_central(normal_raw_moments_all(zero, CONV_SIGMA**2, 2 * N)), zero, ys,
@@ -2745,7 +2727,8 @@ def phase_conv_taylor(data, central, smi):
          trial_max_gap_quantiles={q: per_trial.quantile(q).item() for q in (0.5, 0.9, 0.99)},
          trial_max_gap_max=per_trial.max().item(),
          trials_within_gap=(per_trial <= CONV_TAYLOR_MEAN_GAP).double().mean().item(),
-         central_abs_mean_err=central[N]["row"]["abs_mean_err"], k1_launches=qk.LAUNCHES,
+         central_abs_mean_err=central[N]["row"]["abs_mean_err"],
+         k1_launches=kernel_launches(launched_before)["K1"],
          card=smi)
     if not (all_finite and gap.mean().item() <= CONV_TAYLOR_MEAN_GAP):
         raise AssertionError(f"Taylor filter: finite {all_finite}, mean gap {gap.mean().item()}")
@@ -2860,7 +2843,6 @@ def phase_density(pss, xs_grid, moment, smi):
     Returns the first ``DENSITY_CPU_TRIALS`` trials' densities and inputs
     (all ten steps) for the CPU re-run, and K1's launches (one a
     characteristic function)."""
-    from mfs_tpu_torch.ops import quadrature_kernel as qk
     tw = trapezoid_weights(xs_grid)
     keep, launches, bad = {}, 0, []
     for N in DENSITY_NS:
@@ -2870,9 +2852,10 @@ def phase_density(pss, xs_grid, moment, smi):
         rows = DENSITY_CPU_TRIALS * len(DENSITY_STEPS)
         keep[N] = dict(cms=cms[:rows].cpu().numpy(), mean=mean[:rows].cpu().numpy())
         for name in DENSITY_METHODS:
-            qk.LAUNCHES = 0
+            launched_before = kernel_launches()
             pdf, wall, peak = on_card(lambda: density_approximations(cms, mean, xs_grid, name))
-            launches += qk.LAUNCHES
+            launched = kernel_launches(launched_before)["K1"]
+            launches += launched
             diff = (pdf - truth).abs()
             mass = pdf @ tw
             l1 = diff @ tw
@@ -2881,7 +2864,7 @@ def phase_density(pss, xs_grid, moment, smi):
                        mass=float(mass.mean()), mass_min=float(mass.min()),
                        finite_share=float(torch.isfinite(pdf).all(-1).double().mean()))
             emit("density", N=N, method=name, densities=cms.shape[0], grid=xs_grid.shape[0],
-                 **row, wall_s=wall, peak_mem_added_gb=peak, k1_launches=qk.LAUNCHES,
+                 **row, wall_s=wall, peak_mem_added_gb=peak, k1_launches=launched,
                  z_grid=list(DENSITY_Z) if name == "inverse_fourier" else None, card=smi)
             keep[N][name] = pdf[:rows].cpu().numpy()
             if name == "gram_charlier" and not abs(row["mass"] - 1) <= DENSITY_MASS_GAP:

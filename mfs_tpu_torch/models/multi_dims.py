@@ -13,8 +13,10 @@ import torch
 from mfs_tpu_torch.config import DTYPE, default_device
 from mfs_tpu_torch.typings import Array
 from mfs_tpu_torch.utils.gaussian import GaussianSumND
+from mfs_tpu_torch.utils.profiling import span
 
 
+@span("mfs.build.model")
 def satellite_orbital_stability(a=1.0, b=1.0, c=1.0):
     """Drift and dispersion of the satellite orbital-stability SDE (part
     of the model zoo; no experiment uses it)."""
@@ -106,6 +108,7 @@ def _model(dt, T, gs, drift, sigma, device) -> ModelND:
     )
 
 
+@span("mfs.build.model")
 def prey_predator(multi_indices, device=None) -> ModelND:
     """2D stochastic Lotka–Volterra with Bernoulli prey observations:
 
@@ -132,6 +135,7 @@ def prey_predator(multi_indices, device=None) -> ModelND:
     return _model(1e-3, 2000, gs, drift, sigma, device)
 
 
+@span("mfs.build.model")
 def lotka_volterra_3d(multi_indices, device=None) -> ModelND:
     """3D stochastic Lotka–Volterra food chain with a Bernoulli prey sensor:
 

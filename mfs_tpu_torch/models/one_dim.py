@@ -12,6 +12,7 @@ from mfs_tpu_torch.config import DTYPE, default_device
 from mfs_tpu_torch.sde import tme
 from mfs_tpu_torch.typings import Array
 from mfs_tpu_torch.utils.gaussian import GaussianSum1D
+from mfs_tpu_torch.utils.profiling import span
 from mfs_tpu_torch.utils.sdes import simulate_sde
 
 
@@ -48,6 +49,7 @@ def _trial_draws(seed: int, trial_ids: Sequence[int], init_cond: GaussianSum1D, 
     return np.asarray(x0s), np.stack(eps, axis=-1)[..., None]
 
 
+@span("mfs.build.model")
 def benes_bernoulli(N: int = 2, device=None) -> Model1D:
     """Beneš SDE with Bernoulli measurements — the flagship model.
 
@@ -120,6 +122,7 @@ def benes_bernoulli(N: int = 2, device=None) -> Model1D:
     )
 
 
+@span("mfs.build.model")
 def well_poisson(true_p1: float, N: int = 2, device=None):
     """Double-well SDE with softplus-Poisson emissions — the
     parameter-estimation model (JAX: ``mfs_tpu/models/one_dim.py::well_poisson``).

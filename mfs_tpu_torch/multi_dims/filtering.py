@@ -21,6 +21,7 @@ import torch
 from mfs_tpu_torch.multi_dims.moments import weighted_monomials_nd
 from mfs_tpu_torch.multi_dims.quadrature import moment_quadrature_nd
 from mfs_tpu_torch.typings import Array
+from mfs_tpu_torch.utils.profiling import count, span
 
 
 def _prep(moments_partial_order, m0: Array):
@@ -44,6 +45,7 @@ def _contract(values: Array, weights: Array) -> Array:
     return (weights[..., None, :] @ values)[..., 0, :]
 
 
+@span("mfs.filter")
 def moment_filter_nd_rms(
     state_cond_raw_moments: Callable[[Array], Array],
     measurement_cond_pdf: Callable[[Any, Array], Array],
@@ -68,18 +70,23 @@ def moment_filter_nd_rms(
     nell = torch.zeros(rms0.shape[:-1], dtype=rms0.dtype, device=rms0.device)
     rmss = []
     for y in ys:
-        weights, nodes = moment_quadrature_nd(rms, inds, **quad)
-        rms = _contract(state_cond_raw_moments(nodes), weights)
+        with span("mfs.step"):
+            count("filter.steps")
+            weights, nodes = moment_quadrature_nd(rms, inds, **quad)
+            with span("mfs.transition"):
+                rms = _contract(state_cond_raw_moments(nodes), weights)
 
-        weights, nodes = moment_quadrature_nd(rms, inds, **quad)
-        wp = measurement_cond_pdf(y[..., None, :], nodes) * weights
-        pdf_y = torch.sum(wp, dim=-1)
-        rms = weighted_monomials_nd(wp, nodes, multi_indices) / pdf_y[..., None]
-        nell = nell - torch.log(pdf_y)
-        rmss.append(rms)
+            weights, nodes = moment_quadrature_nd(rms, inds, **quad)
+            with span("mfs.update"):
+                wp = measurement_cond_pdf(y[..., None, :], nodes) * weights
+                pdf_y = torch.sum(wp, dim=-1)
+                rms = weighted_monomials_nd(wp, nodes, multi_indices) / pdf_y[..., None]
+                nell = nell - torch.log(pdf_y)
+                rmss.append(rms)
     return torch.stack(rmss), nell
 
 
+@span("mfs.filter")
 def moment_filter_nd_cms(
     state_cond_central_moments: Callable[[Array, Array], Array],
     state_cond_mean: Callable[[Array], Array],
@@ -110,25 +117,30 @@ def moment_filter_nd_cms(
     nell = torch.zeros(cms0.shape[:-1], dtype=cms0.dtype, device=cms0.device)
     cmss, means = [], []
     for y in ys:
-        weights, nodes = moment_quadrature_nd(cms, inds, mean, **quad)
-        if predict_fn is not None:
-            mean, cms = predict_fn(weights, nodes, mean)
-        else:
-            mean = _contract(state_cond_mean(nodes), weights)
-            cms = _contract(state_cond_central_moments(nodes, mean), weights)
+        with span("mfs.step"):
+            count("filter.steps")
+            weights, nodes = moment_quadrature_nd(cms, inds, mean, **quad)
+            with span("mfs.transition"):
+                if predict_fn is not None:
+                    mean, cms = predict_fn(weights, nodes, mean)
+                else:
+                    mean = _contract(state_cond_mean(nodes), weights)
+                    cms = _contract(state_cond_central_moments(nodes, mean), weights)
 
-        weights, nodes = moment_quadrature_nd(cms, inds, mean, **quad)
-        wp = measurement_cond_pdf(y[..., None, :], nodes) * weights
-        pdf_y = torch.sum(wp, dim=-1)
-        mean = weighted_monomials_nd(wp, nodes, unit) / pdf_y[..., None]
-        centred = nodes - mean[..., None, :]
-        cms = weighted_monomials_nd(wp, centred, multi_indices) / pdf_y[..., None]
-        nell = nell - torch.log(pdf_y)
-        cmss.append(cms)
-        means.append(mean)
+            weights, nodes = moment_quadrature_nd(cms, inds, mean, **quad)
+            with span("mfs.update"):
+                wp = measurement_cond_pdf(y[..., None, :], nodes) * weights
+                pdf_y = torch.sum(wp, dim=-1)
+                mean = weighted_monomials_nd(wp, nodes, unit) / pdf_y[..., None]
+                centred = nodes - mean[..., None, :]
+                cms = weighted_monomials_nd(wp, centred, multi_indices) / pdf_y[..., None]
+                nell = nell - torch.log(pdf_y)
+                cmss.append(cms)
+                means.append(mean)
     return torch.stack(cmss), torch.stack(means), nell
 
 
+@span("mfs.filter")
 def moment_filter_nd_scms(
     state_cond_scms: Callable[[Array, Array, Array], Array],
     state_cond_mean_vars: Callable[[Array], Tuple[Array, Array]],
@@ -164,26 +176,31 @@ def moment_filter_nd_scms(
     nell = torch.zeros(scms0.shape[:-1], dtype=scms0.dtype, device=scms0.device)
     scmss, means, scales = [], [], []
     for y in ys:
-        weights, nodes = moment_quadrature_nd(scms, inds, mean, scale, **quad)
-        if predict_fn is not None:
-            mean, scale, scms = predict_fn(weights, nodes, mean, scale)
-        else:
-            cond_means, cond_vars = state_cond_mean_vars(nodes)
-            mean = _contract(cond_means, weights)
-            second = _contract(cond_vars + cond_means**2, weights)
-            scale = torch.sqrt(second - mean**2)
-            scms = _contract(state_cond_scms(nodes, mean, scale), weights)
+        with span("mfs.step"):
+            count("filter.steps")
+            weights, nodes = moment_quadrature_nd(scms, inds, mean, scale, **quad)
+            with span("mfs.transition"):
+                if predict_fn is not None:
+                    mean, scale, scms = predict_fn(weights, nodes, mean, scale)
+                else:
+                    cond_means, cond_vars = state_cond_mean_vars(nodes)
+                    mean = _contract(cond_means, weights)
+                    second = _contract(cond_vars + cond_means**2, weights)
+                    scale = torch.sqrt(second - mean**2)
+                    scms = _contract(state_cond_scms(nodes, mean, scale), weights)
 
-        weights, nodes = moment_quadrature_nd(scms, inds, mean, scale, **quad)
-        wp = measurement_cond_pdf(y[..., None, :], nodes) * weights
-        pdf_y = torch.sum(wp, dim=-1)
-        mean = weighted_monomials_nd(wp, nodes, unit) / pdf_y[..., None]
-        centred = nodes - mean[..., None, :]
-        scale = torch.sqrt(weighted_monomials_nd(wp, centred, 2 * unit) / pdf_y[..., None])
-        scms = weighted_monomials_nd(wp, centred / scale[..., None, :],
-                                     multi_indices) / pdf_y[..., None]
-        nell = nell - torch.log(pdf_y)
-        scmss.append(scms)
-        means.append(mean)
-        scales.append(scale)
+            weights, nodes = moment_quadrature_nd(scms, inds, mean, scale, **quad)
+            with span("mfs.update"):
+                wp = measurement_cond_pdf(y[..., None, :], nodes) * weights
+                pdf_y = torch.sum(wp, dim=-1)
+                mean = weighted_monomials_nd(wp, nodes, unit) / pdf_y[..., None]
+                centred = nodes - mean[..., None, :]
+                scale = torch.sqrt(weighted_monomials_nd(wp, centred, 2 * unit)
+                                   / pdf_y[..., None])
+                scms = weighted_monomials_nd(wp, centred / scale[..., None, :],
+                                             multi_indices) / pdf_y[..., None]
+                nell = nell - torch.log(pdf_y)
+                scmss.append(scms)
+                means.append(mean)
+                scales.append(scale)
     return torch.stack(scmss), torch.stack(means), torch.stack(scales), nell

@@ -23,6 +23,7 @@ import torch
 from mfs_tpu_torch.multi_dims.multi_indices import find_indices
 from mfs_tpu_torch.sde import tme
 from mfs_tpu_torch.typings import Array, FloatScalar
+from mfs_tpu_torch.utils.profiling import span
 
 
 def _key(multi_indices) -> tuple:
@@ -273,6 +274,7 @@ def _per_node(v: Array, nodes: Array) -> Array:
     return v
 
 
+@span("mfs.build.transition")
 def sde_cond_moments_nd_tme(
     drift: Callable,
     dispersion: Callable,
@@ -347,6 +349,7 @@ def _normal_closure_factory_nd(
     return TransitionMomentsND(rms, cms, scms, mean_fn, mean_var)
 
 
+@span("mfs.build.transition")
 def sde_cond_moments_nd_euler_maruyama(
     drift: Callable,
     dispersion: Callable,
@@ -365,6 +368,7 @@ def sde_cond_moments_nd_euler_maruyama(
     return _normal_closure_factory_nd(cond_mean_cov, multi_indices)
 
 
+@span("mfs.build.transition")
 def sde_cond_moments_nd_tme_normal(
     drift: Callable,
     dispersion: Callable,

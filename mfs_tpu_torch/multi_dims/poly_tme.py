@@ -44,6 +44,7 @@ from mfs_tpu_torch.multi_dims.multi_indices import (
     graded_lexico_indexof_multi_index,
 )
 from mfs_tpu_torch.typings import Array, FloatScalar
+from mfs_tpu_torch.utils.profiling import span
 
 
 def poly_coefficients(f: Callable, d: int, deg: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -371,6 +372,7 @@ class PolyTME(NamedTuple):
         return mean, var
 
 
+@span("mfs.build.transition")
 def poly_tme_nd(
     drift: Callable,
     dispersion: Callable,

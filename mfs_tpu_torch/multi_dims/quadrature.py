@@ -50,6 +50,7 @@ from mfs_tpu_torch.ops.quadrature_nd_kernel import (
 )
 from mfs_tpu_torch.typings import Array
 from mfs_tpu_torch.utils.linalg import ldl_chol
+from mfs_tpu_torch.utils.profiling import count, span
 
 @lru_cache(maxsize=None)
 def _cartesian_indices(d: int, n: int) -> np.ndarray:
@@ -83,6 +84,7 @@ def _cholesky_or_nan(G: Array) -> Array:
     return torch.where((info != 0)[..., None, None], float("nan"), R)
 
 
+@span("mfs.quadrature")
 def moment_quadrature_nd(
     ms: Array,
     inds: Union[Array, np.ndarray],
@@ -114,20 +116,22 @@ def moment_quadrature_nd(
     """
     inds = np.asarray(torch.as_tensor(inds).cpu(), dtype=np.int64)
     d, s = inds.shape[0] - 1, inds.shape[1]
-    eigh_impl = resolve_impl_nd(s, ms[..., 0].numel(), eigh_impl, d, device=ms.device)
+    trials = ms[..., 0].numel()
+    eigh_impl = resolve_impl_nd(s, trials, eigh_impl, d, device=ms.device)
+    route = fused_nd_kernel(s, d) if eigh_impl == "fused" else eigh_impl
+    if route is None:
+        raise ValueError(f"no fused ND quadrature for d = {d}, s = {s} (the kernels take "
+                         f"d <= {MAX_D_K}, s <= {MAX_S_K}): use eigh_impl='refined'")
+    count("quadrature.calls." + route)
+    count("quadrature.trials." + route, trials)
 
-    if eigh_impl == "fused":
-        kernel = fused_nd_kernel(s, d)
-        if kernel == "nd_eigh":
-            vals, vecs = nd_eigh_fused(ms, inds)
-            if sort_nodes:
-                vals, order = torch.sort(vals, dim=-1)
-                vecs = torch.gather(vecs, -1, order[..., None, :].expand(vecs.shape))
-        elif kernel == "nd_k":
-            vals, vecs = eigh_refined(nd_k_fused(ms, inds), sort=sort_nodes)
-        else:
-            raise ValueError(f"no fused ND quadrature for d = {d}, s = {s} (the kernels take "
-                             f"d <= {MAX_D_K}, s <= {MAX_S_K}): use eigh_impl='refined'")
+    if route == "nd_eigh":
+        vals, vecs = nd_eigh_fused(ms, inds)
+        if sort_nodes:
+            vals, order = torch.sort(vals, dim=-1)
+            vecs = torch.gather(vecs, -1, order[..., None, :].expand(vecs.shape))
+    elif route == "nd_k":
+        vals, vecs = eigh_refined(nd_k_fused(ms, inds), sort=sort_nodes)
     else:
         idx = torch.as_tensor(inds, device=ms.device)
         G = ms[..., idx[0]]

@@ -21,6 +21,7 @@ import torch
 
 from mfs_tpu_torch.one_dim.quadrature import moment_quadrature, taylor_quadrature
 from mfs_tpu_torch.typings import Array, FloatScalar
+from mfs_tpu_torch.utils.profiling import count, span
 
 
 def _monomials(u: Array, num: int) -> Array:
@@ -39,6 +40,7 @@ def _batch_constant(x, like: Array) -> Array:
     return torch.as_tensor(x, dtype=like.dtype, device=like.device).expand(like.shape[:-1])
 
 
+@span("mfs.filter")
 def moment_filter_rms(
     state_cond_raw_moments: Callable[[Array], Array],
     measurement_cond_pdf: Callable[[Any, Array], Array],
@@ -60,19 +62,24 @@ def moment_filter_rms(
     nell = torch.zeros(rms0.shape[:-1], dtype=rms0.dtype, device=rms0.device)
     rmss = []
     for y in ys:
-        weights, nodes = moment_quadrature(rms, **quad)
-        rms = torch.einsum("...nj,...n->...j", state_cond_raw_moments(nodes), weights)
+        with span("mfs.step"):
+            count("filter.steps")
+            weights, nodes = moment_quadrature(rms, **quad)
+            with span("mfs.transition"):
+                rms = torch.einsum("...nj,...n->...j", state_cond_raw_moments(nodes), weights)
 
-        weights, nodes = moment_quadrature(rms, **quad)
-        pdf_vals = measurement_cond_pdf(y[..., None], nodes)
-        pdf_y = torch.einsum("...n,...n->...", pdf_vals, weights)
-        post = _monomials(nodes, num_moments) * (pdf_vals * weights)[..., None]
-        rms = torch.sum(post, dim=-2) / pdf_y[..., None]
-        nell = nell - torch.log(pdf_y)
-        rmss.append(rms)
+            weights, nodes = moment_quadrature(rms, **quad)
+            with span("mfs.update"):
+                pdf_vals = measurement_cond_pdf(y[..., None], nodes)
+                pdf_y = torch.einsum("...n,...n->...", pdf_vals, weights)
+                post = _monomials(nodes, num_moments) * (pdf_vals * weights)[..., None]
+                rms = torch.sum(post, dim=-2) / pdf_y[..., None]
+                nell = nell - torch.log(pdf_y)
+                rmss.append(rms)
     return torch.stack(rmss), nell
 
 
+@span("mfs.filter")
 def moment_filter_cms(
     state_cond_central_moments: Callable[[Array, Array], Array],
     state_cond_mean: Callable[[Array], Array],
@@ -100,24 +107,29 @@ def moment_filter_cms(
     nell = torch.zeros(cms0.shape[:-1], dtype=cms0.dtype, device=cms0.device)
     cmss, means = [], []
     for y in ys:
-        weights, nodes = moment_quadrature(cms, mean, **quad)
-        mean = torch.einsum("...n,...n->...", state_cond_mean(nodes), weights)
-        cond_cms = state_cond_central_moments(nodes, mean[..., None])
-        cms = torch.einsum("...nj,...n->...j", cond_cms, weights)
+        with span("mfs.step"):
+            count("filter.steps")
+            weights, nodes = moment_quadrature(cms, mean, **quad)
+            with span("mfs.transition"):
+                mean = torch.einsum("...n,...n->...", state_cond_mean(nodes), weights)
+                cond_cms = state_cond_central_moments(nodes, mean[..., None])
+                cms = torch.einsum("...nj,...n->...j", cond_cms, weights)
 
-        weights, nodes = moment_quadrature(cms, mean, **quad)
-        pdf_vals = measurement_cond_pdf(y[..., None], nodes)
-        wp = pdf_vals * weights
-        pdf_y = torch.sum(wp, dim=-1)
-        mean = torch.sum(nodes * wp, dim=-1) / pdf_y
-        post = _monomials(nodes - mean[..., None], num_moments) * wp[..., None]
-        cms = torch.sum(post, dim=-2) / pdf_y[..., None]
-        nell = nell - torch.log(pdf_y)
-        cmss.append(cms)
-        means.append(mean)
+            weights, nodes = moment_quadrature(cms, mean, **quad)
+            with span("mfs.update"):
+                pdf_vals = measurement_cond_pdf(y[..., None], nodes)
+                wp = pdf_vals * weights
+                pdf_y = torch.sum(wp, dim=-1)
+                mean = torch.sum(nodes * wp, dim=-1) / pdf_y
+                post = _monomials(nodes - mean[..., None], num_moments) * wp[..., None]
+                cms = torch.sum(post, dim=-2) / pdf_y[..., None]
+                nell = nell - torch.log(pdf_y)
+                cmss.append(cms)
+                means.append(mean)
     return torch.stack(cmss), torch.stack(means), nell
 
 
+@span("mfs.filter")
 def moment_filter_scms(
     state_cond_scaled_central_moments: Callable[[Array, Array, Array], Array],
     state_cond_mean_var: Callable[[Array], Tuple[Array, Array]],
@@ -152,33 +164,38 @@ def moment_filter_scms(
     nell = torch.zeros(scms0.shape[:-1], dtype=scms0.dtype, device=scms0.device)
     scmss, means, scales = [], [], []
     for y in ys:
-        weights, nodes = moment_quadrature(scms, mean, scale, **quad)
-        cond_means, cond_vars = state_cond_mean_var(nodes)
-        mean = torch.einsum("...n,...n->...", cond_means, weights)
-        # Full predicted standard deviation (law of total variance).
-        second = torch.einsum("...n,...n->...", cond_vars + cond_means**2, weights)
-        scale = torch.sqrt(second - mean**2)
-        cond_scms = state_cond_scaled_central_moments(
-            nodes, mean[..., None], scale[..., None]
-        )
-        scms = torch.einsum("...nj,...n->...j", cond_scms, weights)
+        with span("mfs.step"):
+            count("filter.steps")
+            weights, nodes = moment_quadrature(scms, mean, scale, **quad)
+            with span("mfs.transition"):
+                cond_means, cond_vars = state_cond_mean_var(nodes)
+                mean = torch.einsum("...n,...n->...", cond_means, weights)
+                # Full predicted standard deviation (law of total variance).
+                second = torch.einsum("...n,...n->...", cond_vars + cond_means**2, weights)
+                scale = torch.sqrt(second - mean**2)
+                cond_scms = state_cond_scaled_central_moments(
+                    nodes, mean[..., None], scale[..., None]
+                )
+                scms = torch.einsum("...nj,...n->...j", cond_scms, weights)
 
-        weights, nodes = moment_quadrature(scms, mean, scale, **quad)
-        pdf_vals = measurement_cond_pdf(y[..., None], nodes)
-        wp = pdf_vals * weights
-        pdf_y = torch.sum(wp, dim=-1)
-        mean = torch.sum(nodes * wp, dim=-1) / pdf_y
-        centred = nodes - mean[..., None]
-        scale = torch.sqrt(torch.sum(centred**2 * wp, dim=-1) / pdf_y)
-        post = _monomials(centred / scale[..., None], num_moments) * wp[..., None]
-        scms = torch.sum(post, dim=-2) / pdf_y[..., None]
-        nell = nell - torch.log(pdf_y)
-        scmss.append(scms)
-        means.append(mean)
-        scales.append(scale)
+            weights, nodes = moment_quadrature(scms, mean, scale, **quad)
+            with span("mfs.update"):
+                pdf_vals = measurement_cond_pdf(y[..., None], nodes)
+                wp = pdf_vals * weights
+                pdf_y = torch.sum(wp, dim=-1)
+                mean = torch.sum(nodes * wp, dim=-1) / pdf_y
+                centred = nodes - mean[..., None]
+                scale = torch.sqrt(torch.sum(centred**2 * wp, dim=-1) / pdf_y)
+                post = _monomials(centred / scale[..., None], num_moments) * wp[..., None]
+                scms = torch.sum(post, dim=-2) / pdf_y[..., None]
+                nell = nell - torch.log(pdf_y)
+                scmss.append(scms)
+                means.append(mean)
+                scales.append(scale)
     return torch.stack(scmss), torch.stack(means), torch.stack(scales), nell
 
 
+@span("mfs.filter")
 def moment_filter_taylor(
     state_cond_central_moments: Callable[[Array, Array], Array],
     state_cond_mean: Callable[[Array], Array],
@@ -207,21 +224,25 @@ def moment_filter_taylor(
     nell = torch.zeros(cms0.shape[:-1], dtype=cms0.dtype, device=cms0.device)
     cmss, means = [], []
     for y in ys:
-        # Prediction: E[g(X)] by Taylor with the current central moments.
-        new_mean = taylor_quadrature(state_cond_mean, cms, mean, order)
-        cms_p = taylor_quadrature(
-            lambda u: state_cond_central_moments(u, new_mean), cms, mean, order
-        )
-        mean = new_mean
+        with span("mfs.step"):
+            count("filter.steps")
+            # Prediction: E[g(X)] by Taylor with the current central moments.
+            with span("mfs.transition"):
+                new_mean = taylor_quadrature(state_cond_mean, cms, mean, order)
+                cms_p = taylor_quadrature(
+                    lambda u: state_cond_central_moments(u, new_mean), cms, mean, order
+                )
+                mean = new_mean
 
-        # Update: unnormalised posterior moments by Taylor.
-        like = lambda u: measurement_cond_pdf(y, u)
-        pdf_y = taylor_quadrature(like, cms_p, mean, order)
-        mean_u = taylor_quadrature(lambda u: u * like(u), cms_p, mean, order) / pdf_y
-        centred = lambda u: _monomials(u - mean_u, num_moments) * like(u)[..., None]
-        cms = taylor_quadrature(centred, cms_p, mean, order) / pdf_y[..., None]
-        mean = mean_u
-        nell = nell - torch.log(pdf_y)
-        cmss.append(cms)
-        means.append(mean)
+            # Update: unnormalised posterior moments by Taylor.
+            with span("mfs.update"):
+                like = lambda u: measurement_cond_pdf(y, u)
+                pdf_y = taylor_quadrature(like, cms_p, mean, order)
+                mean_u = taylor_quadrature(lambda u: u * like(u), cms_p, mean, order) / pdf_y
+                centred = lambda u: _monomials(u - mean_u, num_moments) * like(u)[..., None]
+                cms = taylor_quadrature(centred, cms_p, mean, order) / pdf_y[..., None]
+                mean = mean_u
+                nell = nell - torch.log(pdf_y)
+                cmss.append(cms)
+                means.append(mean)
     return torch.stack(cmss), torch.stack(means), nell

@@ -32,6 +32,7 @@ from mfs_tpu_torch.ops.dispatch import resolve_impl_1d
 from mfs_tpu_torch.ops.quadrature_kernel import moment_quadrature_fused
 from mfs_tpu_torch.typings import Array, FloatScalar
 from mfs_tpu_torch.utils.linalg import ldl_chol
+from mfs_tpu_torch.utils.profiling import count, span
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,6 +56,7 @@ def _cholesky_or_nan(G: Array) -> Array:
     return torch.where((info != 0)[..., None, None], float("nan"), R)
 
 
+@span("mfs.quadrature")
 def moment_quadrature(
     ms: Array,
     mean: FloatScalar = 0.0,
@@ -89,7 +91,10 @@ def moment_quadrature(
     -------
     weights : Array (..., n), nodes : Array (..., n)
     """
-    eigh_impl = resolve_impl_1d(ms.shape[-1] // 2, ms[..., 0].numel(), eigh_impl, device=ms.device)
+    trials = ms[..., 0].numel()
+    eigh_impl = resolve_impl_1d(ms.shape[-1] // 2, trials, eigh_impl, device=ms.device)
+    count("quadrature.calls." + eigh_impl)
+    count("quadrature.trials." + eigh_impl, trials)
     if eigh_impl == "fused":
         return moment_quadrature_fused(ms, mean, scale, jitter=quad_jitter)
 

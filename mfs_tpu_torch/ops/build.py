@@ -16,6 +16,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Sequence
 
+from mfs_tpu_torch.utils.profiling import span
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -44,6 +46,7 @@ def saved_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+@span("mfs.kernels.build")
 def build(names: Sequence[str]) -> Dict[str, str]:
     """Compile every library in ``names`` that is not built yet: one
     ``nvcc`` per source, all started together.  Returns the compiler's
@@ -74,6 +77,7 @@ def build(names: Sequence[str]) -> Dict[str, str]:
 
 
 @functools.lru_cache(maxsize=None)
+@span("mfs.kernels.load")
 def load(name: str) -> ctypes.CDLL:
     """The built library ``name``, building it first if needed."""
     build([name])

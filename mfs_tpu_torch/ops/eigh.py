@@ -25,8 +25,12 @@ raising for the whole batch:
 - A chunk that raises ``torch.linalg.LinAlgError`` for a finite matrix
   that does not converge is split in halves until the failing matrices
   stand alone; those come back NaN, as LAPACK marks them in JAX, so the
-  rescue tiers pick their trials up.  ``NONCONVERGED`` counts them.
-  Any other error raises.
+  rescue tiers pick their trials up.  The counter ``eigh.nonconverged``
+  (``utils/profiling.py``) counts them.  Any other error raises.
+
+Each ``torch.linalg.eigh`` call is a span ``mfs.eigh`` and counts under
+``eigh.calls``; on a CUDA tensor it also blocks the host until the
+device has finished it (``sync.eigh``).
 """
 from typing import List, Tuple
 
@@ -34,6 +38,7 @@ import torch
 
 from mfs_tpu_torch.ops.quadrature_nd_kernel import round_robin_schedule
 from mfs_tpu_torch.typings import Array
+from mfs_tpu_torch.utils.profiling import count, span
 
 
 DIVERGED_ABS = 1e100
@@ -45,9 +50,6 @@ DIVERGED_ABS = 1e100
 # batch the filters hand it (at most 2 x 4,096 in 1D, 2,048 at 2D order
 # 11) fits in one call.
 EIGH_CHUNK = 16_384
-# Matrices masked NaN because torch.linalg.eigh did not converge on them
-# (finite input); callers read it before and after a phase.
-NONCONVERGED = 0
 
 
 def _eigh_converged(a: Array) -> List[Tuple[Array, Array]]:
@@ -55,14 +57,17 @@ def _eigh_converged(a: Array) -> List[Tuple[Array, Array]]:
     matrix failed to converge, the batch is split in halves until each
     failing matrix stands alone, and that one comes back NaN.  Returns
     (vals, vecs) parts in batch order."""
-    global NONCONVERGED
+    count("eigh.calls")
+    if a.is_cuda:
+        count("sync.eigh")
     try:
-        return [torch.linalg.eigh(a)]
+        with span("mfs.eigh"):
+            return [torch.linalg.eigh(a)]
     except torch.linalg.LinAlgError as e:
         if "failed to converge" not in str(e):
             raise
         if a.shape[0] == 1:
-            NONCONVERGED += 1
+            count("eigh.nonconverged")
             nan = torch.full_like(a, float("nan"))
             return [(nan[..., 0], nan)]
     half = a.shape[0] // 2

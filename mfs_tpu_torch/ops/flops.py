@@ -35,6 +35,8 @@ from typing import Any, Callable, Dict, List
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from mfs_tpu_torch.utils import profiling
+
 _ELEMENTWISE = {
     "add", "sub", "rsub", "mul", "neg", "maximum", "minimum", "max", "min", "abs",
     "floor", "ceil", "round", "trunc", "frac", "sign", "sgn", "clamp", "clamp_min",
@@ -136,13 +138,18 @@ class _FlopCounter(TorchDispatchMode):
 
 # Tallies of the counts open now, innermost last (``count_flops`` nests).
 _OPEN: List[Dict[str, float]] = []
+# A kernel's launch counter where its name differs from its operations' key.
+_COUNTER = {"quadrature_1d": "k1"}
 
 
 def kernel_launch(name: str, batch: int, per_trial: Callable[[], int],
                   lower_bound: bool = False) -> None:
-    """Called by a kernel wrapper where it launches its CUDA kernel: adds
-    ``per_trial() * batch`` FP64 operations under ``kernel[name][float64]``
-    to every open count (``per_trial`` is called only if one is open)."""
+    """Called by a kernel wrapper where it has launched its CUDA kernel:
+    counts the launch under ``kernel.launches.<kernel>`` (K1's as ``k1``;
+    ``utils/profiling.py``) and adds ``per_trial() * batch`` FP64
+    operations under ``kernel[name][float64]`` to every open count
+    (``per_trial`` is called only if one is open)."""
+    profiling.count("kernel.launches." + _COUNTER.get(name, name))
     if not _OPEN:
         return
     key = f"kernel[{name}][float64]"

@@ -42,10 +42,9 @@ import torch
 from mfs_tpu_torch.config import DTYPE
 from mfs_tpu_torch.ops import build, flops
 from mfs_tpu_torch.typings import Array
+from mfs_tpu_torch.utils.profiling import span
 
 MAX_N = 32
-# Launches of the CUDA kernel (not of its plain version) since import.
-LAUNCHES = 0
 
 _BISECT_ITERS = 32
 _NEWTON_ITERS = 8
@@ -91,7 +90,6 @@ def moment_quadrature_fused(ms: Array, mean=0.0, scale=1.0, jitter: float = 0.0)
 def _quadrature(ms: Array, mean: Array, scale: Array, jitter: float):
     """The forward routes: the plain version on a CPU tensor, the CUDA
     kernel on a CUDA tensor, and an error on any other device."""
-    global LAUNCHES
     if ms.device.type == "cpu":
         return moment_quadrature_fused_plain(ms, mean, scale, jitter)
     n, batch_shape, B, mean, scale = _prepare(ms, mean, scale)
@@ -103,13 +101,12 @@ def _quadrature(ms: Array, mean: Array, scale: Array, jitter: float):
     w = torch.empty((n, B), dtype=DTYPE, device=ms.device)
     x = torch.empty((n, B), dtype=DTYPE, device=ms.device)
     fn = _kernel()
-    with torch.cuda.device(ms.device):
+    with span("mfs.kernel.k1"), torch.cuda.device(ms.device):
         stream = torch.cuda.current_stream(ms.device).cuda_stream
         err = fn(ms2.data_ptr(), mean.data_ptr(), scale.data_ptr(), w.data_ptr(),
                  x.data_ptr(), n, B, float(jitter), stream)
     if err != 0:
         raise RuntimeError(f"quadrature_1d launch failed: CUDA error {err}")
-    LAUNCHES += 1
     flops.kernel_launch("quadrature_1d", B, lambda: flops.k1_flops(n)[0])
     return w.T.reshape(batch_shape + (n,)), x.T.reshape(batch_shape + (n,))
 

@@ -48,6 +48,7 @@ import torch
 from mfs_tpu_torch.config import DTYPE
 from mfs_tpu_torch.ops import build, flops
 from mfs_tpu_torch.typings import Array
+from mfs_tpu_torch.utils.profiling import span
 
 MAX_S_EIGH = 10  # K2: one warp per (trial, dimension), matrices in shared memory
 MAX_D_EIGH = 3
@@ -58,11 +59,6 @@ MAX_D_K = 3
 MAX_SWEEPS = 20
 JACOBI_TOL = 1e-14
 _PIVOT_DIAG = 1e-8
-
-# Launches of each CUDA kernel (not of the plain versions) since import.
-EIGH_LAUNCHES = 0
-LDL_LAUNCHES = 0
-KSOLVE_LAUNCHES = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,7 +140,7 @@ def _stream(device) -> int:
 
 
 def _launch(name: str, fn, device, *args) -> None:
-    with torch.cuda.device(device):
+    with span("mfs.kernel." + name), torch.cuda.device(device):
         err = fn(*args, _stream(device))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -223,7 +219,6 @@ def nd_ldl_fused(ms: Array, inds) -> Tuple[Array, Array, Array, Array]:
     ``(Lu (..., s, s), piv, c, inv_scale (..., s))``: unit-lower factor,
     guarded pivots, equilibration vector and 1/scale of R = Lu diag(scale).
     ``nd_ldl_kernel`` on a CUDA tensor, its plain version on a CPU tensor."""
-    global LDL_LAUNCHES
     if torch.is_tensor(ms) and ms.device.type == "cpu":
         return nd_ldl_plain(ms, inds)
     inds, d, s, z, batch_shape, B = _prepare(ms, inds, MAX_S_K, MAX_D_K)
@@ -235,7 +230,6 @@ def nd_ldl_fused(ms: Array, inds) -> Tuple[Array, Array, Array, Array]:
     _launch("nd_ldl", _lib()[1], ms.device, ms2.data_ptr(),
             _device_inds(inds, ms.device).data_ptr(), Lu.data_ptr(), piv.data_ptr(),
             c.data_ptr(), isc.data_ptr(), s, z, B)
-    LDL_LAUNCHES += 1
     flops.kernel_launch("nd_ldl", B, lambda: flops.ldl_flops(s))
     return (Lu.reshape(batch_shape + (s, s)),) + tuple(
         v.reshape(batch_shape + (s,)) for v in (piv, c, isc))
@@ -253,7 +247,6 @@ def nd_ksolve_fused(ms: Array, inds, Lu: Array, cvec: Array, inv_scale: Array) -
     unit diagonal block (inverted once per trial) run on the FP64 tensor
     cores (``mma.sync`` m8n8k4).  Its bound is bytes (moments and Lu read
     once, K written once; ``chip_smoke.py::pair_timing``)."""
-    global KSOLVE_LAUNCHES
     if torch.is_tensor(ms) and ms.device.type == "cpu":
         return nd_ksolve_plain(ms, inds, Lu, cvec, inv_scale)
     inds, d, s, z, batch_shape, B = _prepare(ms, inds, MAX_S_K, MAX_D_K)
@@ -265,7 +258,6 @@ def nd_ksolve_fused(ms: Array, inds, Lu: Array, cvec: Array, inv_scale: Array) -
     _launch("nd_ksolve", _lib()[2], ms.device, ms2.data_ptr(),
             _device_inds(inds, ms.device).data_ptr(), Lu.data_ptr(), cvec.data_ptr(),
             inv_scale.data_ptr(), K.data_ptr(), d, s, z, B)
-    KSOLVE_LAUNCHES += 1
     flops.kernel_launch("nd_ksolve", B, lambda: flops.ksolve_flops(s, d))
     return K.reshape(batch_shape + (d, s, s))
 
@@ -347,7 +339,6 @@ def nd_eigh_fused(ms: Array, inds) -> Tuple[Array, Array]:
     over columns) and its cyclic Jacobi, the rotations of a round
     spread over the lanes.  Its bound is FP64 operations outside the
     tensor cores (``ops/flops.py::k2_flops``); it is latency-bound."""
-    global EIGH_LAUNCHES
     if torch.is_tensor(ms) and ms.device.type == "cpu":
         return nd_eigh_fused_plain(ms, inds)
     inds, d, s, z, batch_shape, B = _prepare(ms, inds, MAX_S_EIGH, MAX_D_EIGH)
@@ -359,7 +350,6 @@ def nd_eigh_fused(ms: Array, inds) -> Tuple[Array, Array]:
     _launch("nd_eigh", _lib()[0], ms.device, ms2.data_ptr(),
             _device_inds(inds, ms.device).data_ptr(), vals.data_ptr(), vecs.data_ptr(),
             d, s, z, B)
-    EIGH_LAUNCHES += 1
     # The sweeps depend on the data: counted at one a dimension, a lower bound.
     flops.kernel_launch("nd_eigh", B, lambda: flops.k2_flops(s, d, [1] * d), lower_bound=True)
     return vals.reshape(batch_shape + (d, s)), vecs.reshape(batch_shape + (d, s, s))

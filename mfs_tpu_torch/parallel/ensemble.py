@@ -23,6 +23,7 @@ from torch.distributed.tensor import DTensor, Shard
 from torch.utils._pytree import tree_flatten, tree_map_only, tree_unflatten
 
 from mfs_tpu_torch.parallel.mesh import TRIAL_AXIS, replicate, shard_trials
+from mfs_tpu_torch.utils.profiling import count, span
 
 Runner = Callable[[torch.Tensor], Dict[str, Any]]
 
@@ -112,8 +113,16 @@ def sharded_nell_grad(
                                     for g, x in zip(parts, leaves)], spec)
 
 
-def _mask(x) -> np.ndarray:
-    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+def _mask(finite_fn, out) -> np.ndarray:
+    """``finite_fn(out)`` on the host: for a device tensor the host
+    waits for the device (``sync.rescue_mask``)."""
+    with span("mfs.rescue.mask"):
+        x = finite_fn(out)
+        if not torch.is_tensor(x):
+            return np.asarray(x)
+        if not x.is_cpu:
+            count("sync.rescue_mask")
+        return x.cpu().numpy()
 
 
 def rescue_diverged(
@@ -149,41 +158,52 @@ def rescue_diverged(
     Returns
     -------
     merged : dict, finite : (B,) bool ndarray, rescued : int
+
+    Spans: ``mfs.rescue.tier0`` around ``run_fast``, ``mfs.rescue.tier<k>``
+    around tier k's calls, ``mfs.rescue.mask`` and ``mfs.rescue.splice``.
+    Counters: ``rescue.kept.tier0``, and for k >= 1 ``rescue.handed.tier<k>``
+    and ``rescue.kept.tier<k>``, the trials handed to tier k and kept by it.
     """
     tiers = list(run_robust) if isinstance(run_robust, (list, tuple)) else [run_robust]
-    out = run_fast(ys)
-    finite = _mask(finite_fn(out))
+    with span("mfs.rescue.tier0"):
+        out = run_fast(ys)
+    finite = _mask(finite_fn, out)
+    count("rescue.kept.tier0", int(finite.sum()))
     n = finite.shape[0]
     bucket = n if bucket is None else bucket
     merged = dict(out)
     total_rescued = 0
 
-    for tier in tiers:
+    for t, tier in enumerate(tiers, start=1):
         if finite.all():
             break
         idx = np.where(~finite)[0]
         k = idx.shape[0]
+        count(f"rescue.handed.tier{t}", k)
         width = -(-k // bucket) * bucket
         pad = np.concatenate([idx, np.zeros(width - k, dtype=idx.dtype)])
         pad_t = torch.as_tensor(pad, device=ys.device)
-        parts = [tier(ys.index_select(1, pad_t[s:s + bucket]))
-                 for s in range(0, width, bucket)]
-        robust = parts[0] if len(parts) == 1 else {
-            key: torch.cat([p[key] for p in parts], dim=ax)
-            for key, ax in trial_axes.items() if key in parts[0]
-        }
-        finite_r = _mask(finite_fn(robust))[:k]
+        with span(f"mfs.rescue.tier{t}"):
+            parts = [tier(ys.index_select(1, pad_t[s:s + bucket]))
+                     for s in range(0, width, bucket)]
+            robust = parts[0] if len(parts) == 1 else {
+                key: torch.cat([p[key] for p in parts], dim=ax)
+                for key, ax in trial_axes.items() if key in parts[0]
+            }
+        finite_r = _mask(finite_fn, robust)[:k]
         good = idx[finite_r]
         sel = np.where(finite_r)[0]
+        count(f"rescue.kept.tier{t}", int(good.shape[0]))
 
-        for key, ax in trial_axes.items():
-            if key not in merged or key not in robust:
-                continue
-            a = merged[key].clone()
-            b = robust[key]
-            a.index_copy_(ax, torch.as_tensor(good, device=a.device),
-                          b.index_select(ax, torch.as_tensor(sel, device=b.device)))
-            merged[key] = a
+        with span("mfs.rescue.splice"):
+            for key, ax in trial_axes.items():
+                if key not in merged or key not in robust:
+                    continue
+                a = merged[key].clone()
+                b = robust[key]
+                a.index_copy_(ax, torch.as_tensor(good, device=a.device),
+                              b.index_select(ax, torch.as_tensor(sel, device=b.device)))
+                merged[key] = a
         finite = finite.copy()
         finite[good] = True
         total_rescued += int(good.shape[0])

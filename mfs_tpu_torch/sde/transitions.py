@@ -16,6 +16,7 @@ import torch
 from mfs_tpu_torch.sde import tme
 from mfs_tpu_torch.typings import Array, FloatScalar
 from mfs_tpu_torch.utils.gaussian import normal_raw_moments_all
+from mfs_tpu_torch.utils.profiling import span
 
 
 class TransitionMoments1D(NamedTuple):
@@ -43,6 +44,7 @@ def _scale_powers(scale: Array, num: int) -> Array:
     return torch.stack(out, dim=-1)
 
 
+@span("mfs.build.transition")
 def sde_cond_moments_tme(
     drift: Callable, dispersion: Callable, dt: FloatScalar, tme_order: int, N: int
 ) -> TransitionMoments1D:
@@ -71,6 +73,7 @@ def sde_cond_moments_tme(
     return TransitionMoments1D(rms, cms, scms, mean_fn, mean_var)
 
 
+@span("mfs.build.transition")
 def sde_cond_moments_tme_normal(
     drift: Callable, dispersion: Callable, dt: FloatScalar, tme_order: int, N: int
 ) -> TransitionMoments1D:
@@ -83,6 +86,7 @@ def sde_cond_moments_tme_normal(
     return _normal_closure_factory(_m_v, 2 * N)
 
 
+@span("mfs.build.transition")
 def sde_cond_moments_euler(
     drift: Callable, dispersion: Callable, dt: FloatScalar, N: int
 ) -> TransitionMoments1D:

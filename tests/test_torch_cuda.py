@@ -18,8 +18,14 @@ from mfs_tpu_torch.one_dim.quadrature import hankel_indices, moment_quadrature  
 from mfs_tpu_torch.ops import quadrature_kernel as qk  # noqa: E402
 from mfs_tpu_torch.sde.transitions import sde_cond_moments_tme_normal  # noqa: E402
 from mfs_tpu_torch.utils.gaussian import normal_raw_moments_all  # noqa: E402
+from mfs_tpu_torch.utils.profiling import counters  # noqa: E402
 
 pytestmark = pytest.mark.cuda
+
+
+def _k1():
+    """K1's launches counted by the registry."""
+    return counters().get("kernel.launches.k1", 0)
 
 
 @pytest.fixture
@@ -57,7 +63,7 @@ def test_kernel_matches_plain_version(cuda, N):
     mean = torch.linspace(-1.0, 1.0, 513, dtype=torch.float64, device=cuda)
     scale = torch.full_like(mean, 1.5)
     tol_x, tol_w = (5e-12, 5e-8) if N <= 8 else (1e-9, 1e-10)
-    before = qk.LAUNCHES
+    before = _k1()
     for jitter in (0.0, 1e-8):
         w, x = qk.moment_quadrature_fused(ms, mean, scale, jitter)
         torch.cuda.synchronize()
@@ -65,7 +71,7 @@ def test_kernel_matches_plain_version(cuda, N):
         assert w.device.type == "cuda" and w.shape == (513, N)
         assert (x - xp).abs().max().item() < tol_x
         assert (w - wp).abs().max().item() < tol_w
-    assert qk.LAUNCHES == before + 2
+    assert _k1() == before + 2
 
 
 def _moment_residual(w, x, ms, mean, scale):
@@ -94,7 +100,7 @@ def test_k1_launch_geometry(cuda, n, B):
     ms = _mixture(n, B, n, cuda) if n <= 8 else _central_mixture(n, B, n + B, cuda)
     mean = torch.linspace(-1.0, 1.0, B, dtype=torch.float64, device=cuda)
     scale = torch.full_like(mean, 1.5)
-    before = qk.LAUNCHES
+    before = _k1()
     for jitter in (0.0, 1e-8):
         w, x = qk.moment_quadrature_fused(ms, mean, scale, jitter)
         torch.cuda.synchronize()
@@ -112,21 +118,21 @@ def test_k1_launch_geometry(cuda, n, B):
             res = _moment_residual(w, x, ms, mean, scale).max().item()
             res_p = _moment_residual(wp, xp, ms, mean, scale).max().item()
             assert res <= 10 * res_p + 1e-12
-    assert qk.LAUNCHES == before + 2
+    assert _k1() == before + 2
 
 
 def test_kernel_raises_instead_of_falling_back(cuda):
-    before = qk.LAUNCHES
+    before = _k1()
     with pytest.raises(ValueError):
         qk.moment_quadrature_fused(torch.ones(4, 66, dtype=torch.float64, device=cuda))
     with pytest.raises(TypeError):
         qk.moment_quadrature_fused(_mixture(3, 4, 0, cuda).float())
-    assert qk.LAUNCHES == before
+    assert _k1() == before
     # inputs that require grad run the kernel too (the backward is plain
     # torch), never the plain version
     ms = _mixture(3, 4, 0, cuda).requires_grad_(True)
     (g,) = torch.autograd.grad(qk.moment_quadrature_fused(ms)[1].sum(), ms)
-    assert qk.LAUNCHES == before + 1
+    assert _k1() == before + 1
     assert g.shape == ms.shape and bool(torch.isfinite(g).all())
 
 
@@ -142,12 +148,12 @@ def test_filter_on_card_matches_cpu_plain_path(cuda):
         model = benes_bernoulli(N=N, device=dev)
         trans = sde_cond_moments_tme_normal(model.drift, model.dispersion, model.dt, 2, N)
         ic = model.init_cond
-        before = qk.LAUNCHES
+        before = _k1()
         _, _, nell = moment_filter_cms(
             trans.cms, trans.mean, model.measurement_cond_pdf, ic.cms.expand(B, 2 * N),
             ic.mean.expand(B), torch.as_tensor(ys, device=dev), eigh_impl="auto")
         nells[dev] = nell.cpu()
-        assert qk.LAUNCHES - before == (2 * 20 if dev == "cuda" else 0)
+        assert _k1() - before == (2 * 20 if dev == "cuda" else 0)
     np.testing.assert_allclose(nells["cuda"].numpy(), nells["cpu"].numpy(), rtol=1e-10)
 
 
@@ -216,7 +222,7 @@ def test_k3_matches_plain_version(cuda, N, d):
     Kp = qnd.nd_k_fused_plain(ms, inds)
     ok = torch.arange(1021, device=cuda) != 7
     ran = {k: v - before[k] for k, v in _launches().items()}
-    assert ran == {"EIGH_LAUNCHES": 0, "LDL_LAUNCHES": 1, "KSOLVE_LAUNCHES": 1}
+    assert ran == {"nd_eigh": 0, "nd_ldl": 1, "nd_ksolve": 1}
     assert (K - Kp)[ok].abs().max().item() < 1e-11
     assert bool(torch.isnan(K[7]).any())
 
@@ -229,13 +235,13 @@ def test_k2_matches_plain_version(cuda, N, d):
     ms, inds = _nd_moments(N, d, 513, N + d, cuda)
     ms[5] = float("nan")
     s = inds.shape[1]
-    before = qnd.EIGH_LAUNCHES
+    before = _launches()["nd_eigh"]
     vals, vecs = qnd.nd_eigh_fused(ms, inds)
     torch.cuda.synchronize()
     vp, _ = qnd.nd_eigh_fused_plain(ms, inds)
     K = qnd.nd_k_fused_plain(ms, inds)
     ok = torch.arange(513, device=cuda) != 5
-    assert qnd.EIGH_LAUNCHES == before + 1
+    assert _launches()["nd_eigh"] == before + 1
     assert (vals.sort(-1)[0] - vp.sort(-1)[0])[ok].abs().max().item() < 1e-12
     assert (K @ vecs - vecs * vals[..., None, :])[ok].abs().max().item() < 1e-12
     eye = torch.eye(s, dtype=torch.float64, device=cuda)
@@ -257,8 +263,8 @@ def test_nd_kernels_raise_instead_of_falling_back(cuda):
     assert _launches() == before
 
 
-@pytest.mark.parametrize("N, kernels", [(3, ("EIGH_LAUNCHES",)),
-                                        (5, ("LDL_LAUNCHES", "KSOLVE_LAUNCHES"))])
+@pytest.mark.parametrize("N, kernels", [(3, ("nd_eigh",)),
+                                        (5, ("nd_ldl", "nd_ksolve"))])
 def test_auto_routes_cuda_tensors_to_the_kernels(cuda, N, kernels):
     """"auto" on a CUDA tensor launches K2 at s = 6 and nd_ldl + nd_ksolve
     at s = 15, and the rule reproduces the moments to 5e-12 relative
@@ -273,16 +279,18 @@ def test_auto_routes_cuda_tensors_to_the_kernels(cuda, N, kernels):
     assert ((got - ms).abs() / ms.abs().clamp_min(1.0)).max().item() < 5e-12
 
 
-_COUNTERS = ("EIGH_LAUNCHES", "LDL_LAUNCHES", "KSOLVE_LAUNCHES")
+_COUNTERS = ("nd_eigh", "nd_ldl", "nd_ksolve")
 
 
 def _launches():
-    return {name: getattr(qnd, name) for name in _COUNTERS}
+    """The ND kernels' launches counted by the registry."""
+    counts = counters()
+    return {name: counts.get("kernel.launches." + name, 0) for name in _COUNTERS}
 
 
-@pytest.mark.parametrize("N, kernels", [(3, ("EIGH_LAUNCHES",)),
-                                        (5, ("LDL_LAUNCHES", "KSOLVE_LAUNCHES")),
-                                        (8, ("LDL_LAUNCHES", "KSOLVE_LAUNCHES"))])
+@pytest.mark.parametrize("N, kernels", [(3, ("nd_eigh",)),
+                                        (5, ("nd_ldl", "nd_ksolve")),
+                                        (8, ("nd_ldl", "nd_ksolve"))])
 def test_nd_filter_on_card_matches_cpu_plain_path(cuda, N, kernels):
     """Prey–predator central filter, poly TME-2, B = 8, T = 20, through
     K2 (N=3) or nd_ldl + nd_ksolve + cuSOLVER eigh (N=5, N=8) on the card vs the same filter on the CPU (plain versions):
@@ -369,7 +377,7 @@ def _check_large_pair(cuda, ms, inds, d, B):
     K_on_plain = qnd.nd_ksolve_fused(ms, inds, Lup, cp, iscp)
     torch.cuda.synchronize()
     ran = {k: v - before[k] for k, v in _launches().items()}
-    assert ran == {"EIGH_LAUNCHES": 0, "LDL_LAUNCHES": 1, "KSOLVE_LAUNCHES": 2}
+    assert ran == {"nd_eigh": 0, "nd_ldl": 1, "nd_ksolve": 2}
     s = inds.shape[1]
     assert Lu.shape == (B, s, s) and K.shape == (B, d, s, s)
     assert ((c - cp)[ok].abs() / cp[ok].abs()).max().item() <= 1e-15
@@ -416,7 +424,7 @@ def test_auto_routes_large_bases_to_the_pair(cuda, N):
         got = torch.einsum("bmz,bm->bz", monomials_nd(x, mis), w)
         gaps[impl] = ((got - ms).abs() / ms.abs().clamp_min(1.0)).max().item()
     ran = {k: v - before[k] for k, v in _launches().items()}
-    assert ran == {"EIGH_LAUNCHES": 0, "LDL_LAUNCHES": 1, "KSOLVE_LAUNCHES": 1}
+    assert ran == {"nd_eigh": 0, "nd_ldl": 1, "nd_ksolve": 1}
     assert gaps["auto"] <= 10 * gaps["refined"] + 1e-12
 
 
@@ -449,10 +457,10 @@ def test_k2_launch_geometry(cuda, s, d, B):
     ms, inds = _moments_at(s, d, B, 200 + s + d, cuda)
     if B > 1:
         ms[B // 2] = float("nan")
-    before = qnd.EIGH_LAUNCHES
+    before = _launches()["nd_eigh"]
     vals, vecs = qnd.nd_eigh_fused(ms, inds)
     torch.cuda.synchronize()
-    assert qnd.EIGH_LAUNCHES == before + 1
+    assert _launches()["nd_eigh"] == before + 1
     assert vals.shape == (B, d, s) and vecs.shape == (B, d, s, s)
     vp, _ = qnd.nd_eigh_fused_plain(ms, inds)
     K = qnd.nd_eigh_operators_plain(ms, inds)
@@ -520,10 +528,10 @@ def test_ldl_launch_geometry(cuda, s, B):
     if B > 1:
         ms[nan] = float("nan")
     ok = torch.arange(B, device=cuda) != nan
-    before = qnd.LDL_LAUNCHES
+    before = _launches()["nd_ldl"]
     Lu, piv, c, isc = qnd.nd_ldl_fused(ms, inds)
     torch.cuda.synchronize()
-    assert qnd.LDL_LAUNCHES == before + 1
+    assert _launches()["nd_ldl"] == before + 1
     Lup, pivp, cp, iscp = qnd.nd_ldl_plain(ms, inds)
     assert Lu.shape == (B, s, s) and piv.shape == c.shape == isc.shape == (B, s)
     assert ((c - cp)[ok].abs() / cp[ok].abs()).max().item() <= 1e-15
@@ -651,12 +659,12 @@ def test_f64_eigh_takes_100000_matrices_in_one_call(cuda, monkeypatch):
     g = torch.Generator(device=cuda).manual_seed(0)
     a = torch.randn(100_000, 15, 15, generator=g, dtype=torch.float64, device=cuda)
     a = a + a.mT
-    before = te.NONCONVERGED
+    before = counters().get("eigh.nonconverged", 0)
     vals, vecs = te.eigh_xla(a)
     monkeypatch.setattr(te, "EIGH_CHUNK", 4096)
     vals_c, _ = te.eigh_xla(a)
     scale = a.abs().amax((-1, -2))
-    assert te.NONCONVERGED == before and bool(torch.isfinite(vals).all())
+    assert counters().get("eigh.nonconverged", 0) == before and bool(torch.isfinite(vals).all())
     assert ((vals - vals_c).abs().amax(-1) <= 1e-12 * scale).all()
     assert ((a @ vecs - vecs * vals[:, None, :]).abs().amax((-1, -2)) <= 1e-12 * scale).all()
 
@@ -704,9 +712,9 @@ def test_densities_on_card_match_cpu(cuda):
     out = {}
     for dev in ("cpu", cuda):
         c, m, s, sm, x, z = (t.to(dev) for t in (cms, mean, scale, sms, xs, zs))
-        before = qk.LAUNCHES
+        before = _k1()
         cf = characteristic_fn(z, c, m)
-        launched = qk.LAUNCHES - before
+        launched = _k1() - before
         gc = gram_charlier(sms_to_cumulants(sm, m, s))(x)
         sp0 = saddle_point(sm, m, s, newton_iters=0)(x)
         sp = saddle_point(sm, m, s)(x)
@@ -760,11 +768,11 @@ def test_count_flops_counts_k1_launches(cuda):
     trans = sde_cond_moments_tme_normal(model.drift, model.dispersion, model.dt, 2, N)
     ic = model.init_cond
     ys = torch.ones((T, B), dtype=torch.float64, device=cuda)
-    before = qk.LAUNCHES
+    before = _k1()
     r = count_flops(lambda: moment_filter_cms(
         trans.cms, trans.mean, model.measurement_cond_pdf, ic.cms.expand(B, 2 * N),
         ic.mean.expand(B), ys, eigh_impl="fused"))
-    launches = qk.LAUNCHES - before
+    launches = _k1() - before
     assert launches == 2 * T
     assert r["breakdown"]["kernel[quadrature_1d][float64]"] == launches * B * k1_flops(N)[0]
     assert r["f64"] > r["breakdown"]["kernel[quadrature_1d][float64]"]
@@ -795,8 +803,8 @@ from mfs_tpu_torch.multi_dims.filtering import moment_filter_nd_scms  # noqa: E4
 from mfs_tpu_torch.one_dim.filtering import moment_filter_scms  # noqa: E402
 
 
-@pytest.mark.parametrize("N, kernels", [(3, ("EIGH_LAUNCHES",)),
-                                        (4, ("LDL_LAUNCHES", "KSOLVE_LAUNCHES"))])
+@pytest.mark.parametrize("N, kernels", [(3, ("nd_eigh",)),
+                                        (4, ("nd_ldl", "nd_ksolve"))])
 def test_lv3d_filter_on_card_matches_cpu_plain_path(cuda, N, kernels):
     """The 3D food chain's central filter, poly TME-2, B = 8, T = 5,
     through K2 at d = 3, s = 10 (N=3, 1,000 nodes a trial) or nd_ldl +
@@ -825,8 +833,8 @@ def test_lv3d_filter_on_card_matches_cpu_plain_path(cuda, N, kernels):
     np.testing.assert_allclose(nells["cuda"].numpy(), nells["cpu"].numpy(), rtol=1e-10)
 
 
-@pytest.mark.parametrize("d, N, kernels", [(1, 4, ()), (2, 3, ("EIGH_LAUNCHES",)),
-                                           (2, 5, ("LDL_LAUNCHES", "KSOLVE_LAUNCHES"))])
+@pytest.mark.parametrize("d, N, kernels", [(1, 4, ()), (2, 3, ("nd_eigh",)),
+                                           (2, 5, ("nd_ldl", "nd_ksolve"))])
 def test_scms_filters_on_card_match_cpu_plain_path(cuda, d, N, kernels):
     """The scaled-central filters on the card vs the same filters on the
     CPU (plain versions), B = 8: Beneš N=4, T=20, TME-2 Normal closure,
@@ -842,7 +850,7 @@ def test_scms_filters_on_card_match_cpu_plain_path(cuda, d, N, kernels):
     outs = {}
     for dev in ("cpu", "cuda"):
         y = torch.as_tensor(ys, device=dev)
-        k1_before, before = qk.LAUNCHES, _launches()
+        k1_before, before = _k1(), _launches()
         if d == 1:
             model = benes_bernoulli(N=N, device=dev)
             trans = sde_cond_moments_tme_normal(model.drift, model.dispersion, model.dt, 2, N)
@@ -851,7 +859,7 @@ def test_scms_filters_on_card_match_cpu_plain_path(cuda, d, N, kernels):
                 trans.scms, trans.mean_var, model.measurement_cond_pdf,
                 ic.scms.expand(B, 2 * N), ic.mean.expand(B), torch.sqrt(ic.variance).expand(B),
                 y, eigh_impl="fused")
-            assert qk.LAUNCHES - k1_before == (2 * T if dev == "cuda" else 0)
+            assert _k1() - k1_before == (2 * T if dev == "cuda" else 0)
         else:
             mis = nd_mi.generate_graded_lexico_multi_indices(2, 2 * N - 1)
             inds = nd_mi.gram_and_hankel_indices_graded_lexico(N, 2)

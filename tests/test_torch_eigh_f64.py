@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 from mfs_tpu_torch.one_dim.quadrature import moment_quadrature  # noqa: E402
 from mfs_tpu_torch.ops import eigh as te  # noqa: E402
 from mfs_tpu_torch.utils.gaussian import normal_raw_moments_all  # noqa: E402
+from mfs_tpu_torch.utils.profiling import counters  # noqa: E402
 
 MARK = 12345.0  # a_00 of the matrix the fake solver refuses
 
@@ -53,15 +54,15 @@ def test_chunked_equals_one_call_bit_for_bit(chunk, monkeypatch):
 def test_nonconverged_matrix_masks_only_its_trial(chunk, monkeypatch):
     """A solver that refuses one matrix of 37: that trial's values and
     vectors are NaN, every other trial equals the unpatched call, and
-    ``NONCONVERGED`` counts one."""
+    the counter ``eigh.nonconverged`` counts one."""
     a = _symmetric((37,), 5, seed=3)
     want_vals, want_vecs = te.eigh_xla(a)
     a[20, 0, 0] = MARK
     monkeypatch.setattr(te, "EIGH_CHUNK", chunk)
     monkeypatch.setattr(torch.linalg, "eigh", _refusing_eigh(torch.linalg.eigh))
-    before = te.NONCONVERGED
+    before = counters().get("eigh.nonconverged", 0)
     vals, vecs = te.eigh_xla(a)
-    assert te.NONCONVERGED - before == 1
+    assert counters().get("eigh.nonconverged", 0) - before == 1
     bad = torch.isnan(vals).any(-1)
     assert bad.tolist() == [i == 20 for i in range(37)]
     assert bool(torch.isnan(vecs[20]).all())
@@ -76,10 +77,10 @@ def test_other_solver_errors_raise(monkeypatch):
     def refuse(a, *args, **kwargs):
         raise torch.linalg.LinAlgError("cusolver error: CUSOLVER_STATUS_INVALID_VALUE")
     monkeypatch.setattr(torch.linalg, "eigh", refuse)
-    before = te.NONCONVERGED
+    before = counters().get("eigh.nonconverged", 0)
     with pytest.raises(torch.linalg.LinAlgError, match="INVALID_VALUE"):
         te.eigh_xla(_symmetric((4,), 3, seed=0))
-    assert te.NONCONVERGED == before
+    assert counters().get("eigh.nonconverged", 0) == before
 
 
 def test_masked_trial_leaves_the_quadrature_of_the_others(monkeypatch):
