@@ -7,7 +7,8 @@ plain PyTorch version:
   TME-2 Normal-closure transitions, with the divergence rescue (tier 1:
   the same filter with Gram jitter 1e-8 in 512-trial buckets; tier 2:
   the f64 ``stable=True`` LAPACK path on the card), through K1
-  (``csrc/quadrature_1d.cu``);
+  (``csrc/quadrature_1d.cu``) and the Bayes update's kernel
+  (``csrc/posterior_1d.cu``, timed at n = 15, B = 524,288);
 - ND: the 2D prey–predator central-moment filter with the polynomial
   TME-2, B=1024, at N=7 (T=2000) and N=11 (T=25) through nd_ldl +
   nd_ksolve + cuSOLVER eigh and at N=3 (T=2000) through K2
@@ -72,7 +73,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mfs_tpu_torch.ops.flops import k1_flops, k2_flops, ksolve_flops, ldl_flops
+from mfs_tpu_torch.ops.flops import k1_flops, k2_flops, ksolve_flops, ldl_flops, post1d_flops
 from mfs_tpu_torch.utils import profiling
 
 N = 15
@@ -96,7 +97,9 @@ SPIN_CYCLES = 200_000_000  # ~0.1 s at the H100's ~1.98 GHz boost clock
 
 # The registry's launch counter of each hand-written kernel, by the name
 # the smoke's lines give it.
-KERNEL_COUNTERS = {"K1": "k1", "K2": "nd_eigh", "nd_ldl": "nd_ldl", "nd_ksolve": "nd_ksolve"}
+KERNEL_COUNTERS = {"K1": "k1", "K2": "nd_eigh", "nd_ldl": "nd_ldl", "nd_ksolve": "nd_ksolve",
+                   "post1d": "post1d"}
+POST1D_BATCH = 524_288  # the benchmark's Beneš cell
 
 
 def emit(phase, **fields):
@@ -185,13 +188,13 @@ def _ptxas(log):
 
 
 def phase_build():
-    """Both kernel sources, one nvcc each, started together; a library
+    """The three kernel sources, one nvcc each, started together; a library
     already built from the same source is reused, and its ptxas report
     (each kernel's registers, stack, spills and static shared memory) is
     read from the log saved beside it.  nd_ksolve's shared memory is
     dynamic: ``nd_timing`` gives its layout and occupancy."""
     from mfs_tpu_torch.ops import build
-    names = ("quadrature_1d", "quadrature_nd")
+    names = ("quadrature_1d", "posterior_1d", "quadrature_nd")
     t0 = time.perf_counter()
     logs = build.build(names)
     seconds = time.perf_counter() - t0
@@ -358,6 +361,53 @@ def k1_timing(ms, mean, zs=None):
                 max_abs_err=err, **extra)
 
 
+def phase_post1d_timing(model, trans):
+    """The 1D Bayes update's kernel (``csrc/posterior_1d.cu``, central
+    mode) at n = 15, B = 524,288: K1's rule of the main path's states,
+    tiled, in K1's layout, and the likelihood at its nodes.  Against its
+    plain version on the same inputs: every output finite where the
+    plain one is, and within 1e-12 of the size of the terms it sums:
+    moment j of sum_k |u_k|^j wp_k / pdf_y, the mean of sum_k |x_k| wp_k
+    / pdf_y, pdf_y of itself.  Bound: its bytes, 3 n doubles read and 2N + 2
+    written a trial."""
+    from mfs_tpu_torch.ops import posterior_kernel as pk
+    from mfs_tpu_torch.ops import quadrature_kernel as qk
+    ms, mean = main_path_inputs(model, trans)
+    reps = -(-POST1D_BATCH // ms.shape[0])
+    ms, mean = ms.repeat(reps, 1)[:POST1D_BATCH], mean.repeat(reps)[:POST1D_BATCH]
+    w, x = qk.moment_quadrature_fused(ms, mean, 1.0)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ys = torch.bernoulli(torch.full((POST1D_BATCH,), 0.5, dtype=torch.float64, device="cuda"),
+                         generator=gen)
+    p = model.measurement_cond_pdf(ys[:, None], x)
+    B, n = x.shape
+    launched_before = kernel_launches()
+    got = pk.posterior_moments_1d(x, w, p, "central")
+    torch.cuda.synchronize()
+    want = pk.posterior_moments_1d_plain(x, w, p, "central", 2 * n)
+    sizes = [pk.posterior_moments_1d_plain((x - want[1][:, None]).abs(), w, p, "raw", 2 * n)[0],
+             pk.posterior_moments_1d_plain(x.abs(), w, p, "raw", 2)[0][:, 1], want[2].abs()]
+    if not all(torch.equal(torch.isfinite(g), torch.isfinite(h)) for g, h in zip(got, want)):
+        raise AssertionError("the posterior kernel's finite outputs differ from the plain version's")
+    err = max(((g - h).abs() / z.clamp_min(1e-300))[torch.isfinite(h)].max().item()
+              for g, h, z in zip(got, want, sizes))
+    if not err <= 1e-12:
+        raise AssertionError(f"the posterior kernel disagrees with its plain version: {err}")
+    kernel_ms = cuda_ms(lambda: pk.posterior_moments_1d(x, w, p, "central"), reps=20)
+    plain_ms = cuda_ms(lambda: pk.posterior_moments_1d_plain(x, w, p, "central", 2 * n), reps=3,
+                       warmup=1)
+    timed_launches = kernel_launches(launched_before)["post1d"]
+    nbytes = (3 * n + 2 * n + 2) * 8 * B
+    ops = post1d_flops(n, 2 * n, "central")
+    bound = max(nbytes / HBM_BYTES_PER_S, ops * B / FP64_FLOP_PER_S) * 1e3
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S > ops * B / FP64_FLOP_PER_S else "operations"
+    emit("post1d_timing", n=n, B=B, mode="central", kernel_ms=kernel_ms, plain_ms=plain_ms,
+         bound_ms=bound, bound_by=bound_by, bound_share=bound / kernel_ms, bytes=nbytes,
+         fp64_ops_per_trial=ops, max_rel_err=err, launches=timed_launches)
+    return dict(n=n, B=B, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                max_abs_err=err, timed_launches=timed_launches)
+
+
 def make_runners(model, trans):
     """The rescue pipeline's three filter runners: ys (T, b) -> outputs."""
     from mfs_tpu_torch.one_dim.filtering import moment_filter_cms
@@ -414,7 +464,8 @@ def phase_main_path(model, trans, smi):
         bucket=TIER1_BUCKET)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernel_launches(launched_before)["K1"]
+    launched = kernel_launches(launched_before)
+    launches, post1d_launches = launched["K1"], launched["post1d"]
 
     lost = int((~masks[0]).sum())
     per_tier = []
@@ -422,20 +473,26 @@ def phase_main_path(model, trans, smi):
         per_tier.append(int(mask[:lost].sum()))
         lost -= per_tier[-1]
     buckets1 = -(-int((~masks[0]).sum()) // TIER1_BUCKET)
+    # Tier 2 runs, in buckets, on what tier 1 lost; it takes no K1.
+    buckets2 = -(-(int((~masks[0]).sum()) - per_tier[0]) // TIER1_BUCKET) if len(masks) > 2 else 0
     finite0 = float(masks[0].mean())
     final = float(finite.mean())
     emit("main_path", N=N, T=T, B=BATCH, finite_frac_tier0=finite0,
          finite_frac_rescued=final, rescued_tier1=per_tier[0] if per_tier else 0,
          rescued_tier2=per_tier[1] if len(per_tier) > 1 else 0, rescued_total=rescued,
-         tier1_buckets=buckets1, k1_launches=launches, wall_s=wall,
-         trials_per_s=BATCH / wall, card=smi)
+         tier1_buckets=buckets1, tier2_buckets=buckets2, k1_launches=launches,
+         post1d_launches=post1d_launches, wall_s=wall, trials_per_s=BATCH / wall, card=smi)
     if launches != 2 * T * (1 + buckets1) or launches == 0:
         raise AssertionError(f"K1 launched {launches} times, expected {2 * T * (1 + buckets1)}")
+    # One Bayes update a filter step, in every tier.
+    if post1d_launches != T * (1 + buckets1 + buckets2):
+        raise AssertionError(f"the posterior kernel launched {post1d_launches} times, expected "
+                             f"{T * (1 + buckets1 + buckets2)}")
     if merged["nell"].shape != (BATCH,) or merged["cms_last"].shape != (BATCH, 2 * N):
         raise AssertionError("main-path outputs have the wrong shape")
     if not (final > 0.93 and final >= finite0):
         raise AssertionError(f"finite_frac {final} (tier 0: {finite0})")
-    return launches, ys, tier0_out
+    return launches, post1d_launches, ys, tier0_out
 
 
 def phase_rescue_tiers(model, trans, ys, tier0_out):
@@ -1963,8 +2020,8 @@ def phase_flops(model, trans, ys, setups, smi):
     passes = [("main_path", N, T, BATCH, lambda: tier0(ys))] + [
         (f"nd_N{n}", n, FLOPS_ND_STEPS, ND_B, lambda n=n: run_nd_filter(setups[n], nd_ys, "auto"))
         for n in (3, 7)]
-    counters = {"quadrature_1d": "K1", "nd_eigh": "K2", "nd_ldl": "nd_ldl",
-                "nd_ksolve": "nd_ksolve"}
+    counters = {"quadrature_1d": "K1", "posterior_1d": "post1d", "nd_eigh": "K2",
+                "nd_ldl": "nd_ldl", "nd_ksolve": "nd_ksolve"}
     total_launches, bad = {k: 0 for k in counters}, []
     for name, order, steps, B, run in passes:
         before = kernel_launches()
@@ -1972,8 +2029,10 @@ def phase_flops(model, trans, ys, setups, smi):
         launched = kernel_launches(before)
         launches = {k: launched[label] for k, label in counters.items()}
         s = setups[order][1].shape[1] if name != "main_path" else order
-        per_trial = {"quadrature_1d": k1_flops(order)[0], "nd_eigh": k2_flops(s, 2, [1, 1]),
-                     "nd_ldl": ldl_flops(s), "nd_ksolve": ksolve_flops(s, 2)}
+        per_trial = {"quadrature_1d": k1_flops(order)[0],
+                     "posterior_1d": post1d_flops(order, 2 * order, "central"),
+                     "nd_eigh": k2_flops(s, 2, [1, 1]), "nd_ldl": ldl_flops(s),
+                     "nd_ksolve": ksolve_flops(s, 2)}
         kernels = {k: r["breakdown"].get(f"kernel[{k}][float64]", 0.0) for k in counters}
         expected = {k: launches[k] * B * per_trial[k] for k in counters}
         bad += [f"{name} {k}: {kernels[k]} != {expected[k]}" for k in counters
@@ -2970,7 +3029,8 @@ def main():
     # filter loops are host-bound, so their walls and idle shares would
     # otherwise measure the CPU reference's load as well.
     timing = phase_timing(model, trans)
-    launches, ys, tier0_out = phase_main_path(model, trans, smi)
+    post1d_row = phase_post1d_timing(model, trans)
+    launches, post1d_main, ys, tier0_out = phase_main_path(model, trans, smi)
     phase_forced_rescue(model, trans, ys)
     phase_profile(model, trans)
     scms_1d_nell, scms_1d_launches = phase_scms_1d(model, trans, ys, tier0_out, smi)
@@ -3090,7 +3150,18 @@ def main():
                                  "launches": p["launches"][name], "B": row(p)["B"],
                                  **{k: row(p)[k] for k in keys + ("f64_library_path_ms",)}}
                                 for p in ran]})
-    print(json.dumps({"kernels": [k1] + nd}), flush=True)
+    # The 1D Bayes update replaces no TPU kernel (the JAX package leaves
+    # the update to XLA).  "main_path_launches" is the rescued main path's
+    # (one a filter step in every tier, checked there); "launches" adds
+    # every other 1D filter step the smoke runs on the card, and leaves
+    # out the timing's own calls.
+    post1d = {"name": "posterior_1d", "route": "cuda",
+              "source": "mfs_tpu_torch/csrc/posterior_1d.cu", "replaces": None,
+              "launches": kernel_launches()["post1d"] - post1d_row["timed_launches"],
+              "main_path_launches": post1d_main,
+              **{k: post1d_row[k] for k in keys}, "library_ms": None,
+              "by_batch": [{k: post1d_row[k] for k in ("n", "B") + keys}]}
+    print(json.dumps({"kernels": [k1] + nd + [post1d]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

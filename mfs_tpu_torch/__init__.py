@@ -3,9 +3,9 @@
 Moment-representation stochastic filters for an NVIDIA H100, in f64.
 Module paths and function names mirror ``mfs_tpu``.  The kernels are
 hand-written CUDA C++, built with ``nvcc`` at first use: the fused 1D
-moment quadrature (``csrc/quadrature_1d.cu``) and the ND fused
-eigenpairs and K-builder (``csrc/quadrature_nd.cu``).  Everything else
-is plain PyTorch.
+moment quadrature (``csrc/quadrature_1d.cu``), the 1D Bayes update
+(``csrc/posterior_1d.cu``) and the ND fused eigenpairs and K-builder
+(``csrc/quadrature_nd.cu``).  Everything else is plain PyTorch.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``
 (see ``mfs_tpu_torch.config.default_device``).

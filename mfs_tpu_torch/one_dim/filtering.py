@@ -11,8 +11,11 @@ Port of ``mfs_tpu/one_dim/filtering.py``.  Per time step:
 Batch-first: carries may have leading trial axes — ``cms0 (..., 2N)``,
 ``ys (T, ...)`` — and a Python loop over time replaces ``lax.scan``.
 With ``eigh_impl="auto"`` (or ``"fused"``) every quadrature of a CUDA
-run goes through the hand-written kernel.  ``moment_filter_taylor``
-replaces the quadratures by Taylor expansions around the running mean.
+run goes through the hand-written kernel K1.  The Bayes update of the
+three quadrature loops is ``ops/posterior_kernel.py``: a CUDA kernel on
+CUDA tensors whatever the route, its plain version on the CPU.
+``moment_filter_taylor`` replaces the quadratures by Taylor expansions
+around the running mean.
 """
 import warnings
 from typing import Any, Callable, Tuple
@@ -20,15 +23,10 @@ from typing import Any, Callable, Tuple
 import torch
 
 from mfs_tpu_torch.one_dim.quadrature import moment_quadrature, taylor_quadrature
+from mfs_tpu_torch.ops.posterior_kernel import posterior_moments_1d
 from mfs_tpu_torch.typings import Array, FloatScalar
+from mfs_tpu_torch.utils.combinatorics import monomials
 from mfs_tpu_torch.utils.profiling import count, span
-
-
-def _monomials(u: Array, num: int) -> Array:
-    out = [torch.ones_like(u)]
-    for _ in range(num - 1):
-        out.append(out[-1] * u)
-    return torch.stack(out, dim=-1)
 
 
 def _check_even(num_moments: int) -> None:
@@ -71,9 +69,7 @@ def moment_filter_rms(
             weights, nodes = moment_quadrature(rms, **quad)
             with span("mfs.update"):
                 pdf_vals = measurement_cond_pdf(y[..., None], nodes)
-                pdf_y = torch.einsum("...n,...n->...", pdf_vals, weights)
-                post = _monomials(nodes, num_moments) * (pdf_vals * weights)[..., None]
-                rms = torch.sum(post, dim=-2) / pdf_y[..., None]
+                rms, pdf_y = posterior_moments_1d(nodes, weights, pdf_vals, "raw", num_moments)
                 nell = nell - torch.log(pdf_y)
                 rmss.append(rms)
     return torch.stack(rmss), nell
@@ -118,11 +114,8 @@ def moment_filter_cms(
             weights, nodes = moment_quadrature(cms, mean, **quad)
             with span("mfs.update"):
                 pdf_vals = measurement_cond_pdf(y[..., None], nodes)
-                wp = pdf_vals * weights
-                pdf_y = torch.sum(wp, dim=-1)
-                mean = torch.sum(nodes * wp, dim=-1) / pdf_y
-                post = _monomials(nodes - mean[..., None], num_moments) * wp[..., None]
-                cms = torch.sum(post, dim=-2) / pdf_y[..., None]
+                cms, mean, pdf_y = posterior_moments_1d(nodes, weights, pdf_vals, "central",
+                                                        num_moments)
                 nell = nell - torch.log(pdf_y)
                 cmss.append(cms)
                 means.append(mean)
@@ -181,13 +174,8 @@ def moment_filter_scms(
             weights, nodes = moment_quadrature(scms, mean, scale, **quad)
             with span("mfs.update"):
                 pdf_vals = measurement_cond_pdf(y[..., None], nodes)
-                wp = pdf_vals * weights
-                pdf_y = torch.sum(wp, dim=-1)
-                mean = torch.sum(nodes * wp, dim=-1) / pdf_y
-                centred = nodes - mean[..., None]
-                scale = torch.sqrt(torch.sum(centred**2 * wp, dim=-1) / pdf_y)
-                post = _monomials(centred / scale[..., None], num_moments) * wp[..., None]
-                scms = torch.sum(post, dim=-2) / pdf_y[..., None]
+                scms, mean, scale, pdf_y = posterior_moments_1d(nodes, weights, pdf_vals,
+                                                                "scaled", num_moments)
                 nell = nell - torch.log(pdf_y)
                 scmss.append(scms)
                 means.append(mean)
@@ -239,7 +227,7 @@ def moment_filter_taylor(
                 like = lambda u: measurement_cond_pdf(y, u)
                 pdf_y = taylor_quadrature(like, cms_p, mean, order)
                 mean_u = taylor_quadrature(lambda u: u * like(u), cms_p, mean, order) / pdf_y
-                centred = lambda u: _monomials(u - mean_u, num_moments) * like(u)[..., None]
+                centred = lambda u: monomials(u - mean_u, num_moments) * like(u)[..., None]
                 cms = taylor_quadrature(centred, cms_p, mean, order) / pdf_y[..., None]
                 mean = mean_u
                 nell = nell - torch.log(pdf_y)

@@ -22,8 +22,8 @@ The hand-written CUDA kernels are ``ctypes`` calls that no dispatch mode
 sees, where JAX enters ``pallas_call`` bodies.  So each kernel wrapper
 reports its launch while a count is open (``kernel_launch``): per-trial
 operations times the batch, under ``kernel[<name>][float64]``, from the
-analytic counts below (``k1_flops``, ``ldl_flops``, ``ksolve_flops``,
-``k2_flops``).  K2's Jacobi sweep count depends on the data, so its
+analytic counts below (``k1_flops``, ``post1d_flops``, ``ldl_flops``,
+``ksolve_flops``, ``k2_flops``).  K2's Jacobi sweep count depends on the data, so its
 launches are counted at one sweep per dimension, a lower bound as JAX
 counts one ``while`` iteration, and their keys are listed under
 ``lower_bounds``.  On a CPU tensor the wrappers run their plain
@@ -139,16 +139,17 @@ class _FlopCounter(TorchDispatchMode):
 # Tallies of the counts open now, innermost last (``count_flops`` nests).
 _OPEN: List[Dict[str, float]] = []
 # A kernel's launch counter where its name differs from its operations' key.
-_COUNTER = {"quadrature_1d": "k1"}
+_COUNTER = {"quadrature_1d": "k1", "posterior_1d": "post1d"}
 
 
 def kernel_launch(name: str, batch: int, per_trial: Callable[[], int],
                   lower_bound: bool = False) -> None:
     """Called by a kernel wrapper where it has launched its CUDA kernel:
-    counts the launch under ``kernel.launches.<kernel>`` (K1's as ``k1``;
-    ``utils/profiling.py``) and adds ``per_trial() * batch`` FP64
-    operations under ``kernel[name][float64]`` to every open count
-    (``per_trial`` is called only if one is open)."""
+    counts the launch under ``kernel.launches.<kernel>`` (K1's as ``k1``,
+    the posterior update's as ``post1d``; ``utils/profiling.py``) and
+    adds ``per_trial() * batch`` FP64 operations under
+    ``kernel[name][float64]`` to every open count (``per_trial`` is
+    called only if one is open)."""
     profiling.count("kernel.launches." + _COUNTER.get(name, name))
     if not _OPEN:
         return
@@ -212,6 +213,27 @@ def k1_flops(n):
     ops = equil + ldl + gw + back + qform + gersh + bisect + newton + weights
     divs = (2 * n - 1) + n * (n - 1) // 2 + (n - 1) + 1 + n * 32 * (n - 1) + n * 8 + n * n
     return ops, divs
+
+
+def post1d_flops(n, num, mode):
+    """FP64 operations the 1D posterior update does per trial with n nodes
+    and ``num`` moments, counted from ``csrc/posterior_1d.cu`` (add, sub,
+    mul, div, sqrt one each): wp and pdf_y (2 a node; the mean's 2 more a
+    node and a division outside the raw mode), the scaled mode's second
+    pass (5 a node, a division and a sqrt), and in the moment pass, once
+    per block of 64 moments starting at order c0, a node's wp again, the
+    shift and scale of u, the c0 products that reach u^c0, 1 for order 0
+    (2 past the first block) and 3 for each order above it; then a
+    division a moment."""
+    centred = mode != "raw"
+    first = 2 * n + (2 * n + 1 if centred else 0)
+    second = 5 * n + 2 if mode == "scaled" else 0
+    shift = (1 if centred else 0) + (1 if mode == "scaled" else 0)
+    moments = num
+    for c0 in range(0, num, 64):
+        cn = min(64, num - c0)
+        moments += n * (1 + shift + c0 + (2 if c0 else 1) + 3 * (cn - 1))
+    return first + second + moments
 
 
 def ldl_flops(s):

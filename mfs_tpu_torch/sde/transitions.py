@@ -15,6 +15,7 @@ import torch
 
 from mfs_tpu_torch.sde import tme
 from mfs_tpu_torch.typings import Array, FloatScalar
+from mfs_tpu_torch.utils.combinatorics import monomials
 from mfs_tpu_torch.utils.gaussian import normal_raw_moments_all
 from mfs_tpu_torch.utils.profiling import span
 
@@ -29,21 +30,6 @@ class TransitionMoments1D(NamedTuple):
     mean_var: Callable[[Array], Tuple[Array, Array]]
 
 
-def _monomials(u: Array, num: int) -> Array:
-    """[1, u, ..., u^{num-1}] on a new last axis (product chain)."""
-    out = [torch.ones_like(u)]
-    for _ in range(num - 1):
-        out.append(out[-1] * u)
-    return torch.stack(out, dim=-1)
-
-
-def _scale_powers(scale: Array, num: int) -> Array:
-    out = [torch.ones_like(scale)]
-    for _ in range(num - 1):
-        out.append(out[-1] * scale)
-    return torch.stack(out, dim=-1)
-
-
 @span("mfs.build.transition")
 def sde_cond_moments_tme(
     drift: Callable, dispersion: Callable, dt: FloatScalar, tme_order: int, N: int
@@ -53,15 +39,15 @@ def sde_cond_moments_tme(
     num_moments = 2 * N
 
     def rms(nodes: Array) -> Array:
-        phi = lambda u: _monomials(u, num_moments)
+        phi = lambda u: monomials(u, num_moments)
         return tme.expectation_1d(phi, nodes, dt, drift, dispersion, tme_order)
 
     def cms(nodes: Array, mean: Array) -> Array:
-        phi = lambda u: _monomials(u - mean, num_moments)
+        phi = lambda u: monomials(u - mean, num_moments)
         return tme.expectation_1d(phi, nodes, dt, drift, dispersion, tme_order)
 
     def scms(nodes: Array, mean: Array, scale: Array) -> Array:
-        phi = lambda u: _monomials((u - mean) / scale, num_moments)
+        phi = lambda u: monomials((u - mean) / scale, num_moments)
         return tme.expectation_1d(phi, nodes, dt, drift, dispersion, tme_order)
 
     def mean_fn(nodes: Array) -> Array:
@@ -116,8 +102,8 @@ def _normal_closure_factory(
     def scms(nodes: Array, mean: Array, scale: Array) -> Array:
         m, v = cond_mean_var(nodes)
         out = normal_raw_moments_all(m - mean, v, num_moments)
-        return out / _scale_powers(torch.as_tensor(scale, dtype=out.dtype,
-                                                   device=out.device), num_moments)
+        return out / monomials(torch.as_tensor(scale, dtype=out.dtype, device=out.device),
+                               num_moments)
 
     def mean_fn(nodes: Array) -> Array:
         return cond_mean_var(nodes)[0]

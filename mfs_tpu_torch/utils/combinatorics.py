@@ -118,6 +118,15 @@ def complete_bell(n: int, xs: Entries) -> FloatScalar:
     return sum(row[k] for k in range(1, n + 1))
 
 
+def monomials(u: Array, num: int) -> Array:
+    """[1, u, ..., u^{num-1}] on a new last axis, by the product chain
+    u^j = u^(j-1) u."""
+    out = [torch.ones_like(u)]
+    for _ in range(num - 1):
+        out.append(out[-1] * u)
+    return torch.stack(out, dim=-1)
+
+
 def hermite_probabilist(n: int, x: FloatScalar) -> FloatScalar:
     """Probabilists' Hermite polynomial He_n(x), three-term recurrence,
     elementwise."""

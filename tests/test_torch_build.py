@@ -15,7 +15,7 @@ pytest.importorskip("torch")
 from mfs_tpu_torch.ops import build  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-NAMES = ("quadrature_1d", "quadrature_nd")
+NAMES = ("quadrature_1d", "posterior_1d", "quadrature_nd")
 FAKE_NVCC = """#!/bin/sh
 # writes the file after -o and prints a ptxas-style report
 while [ "$#" -gt 0 ]; do
@@ -55,11 +55,11 @@ def _build_lines(capsys):
 
 def test_build_once_then_reuse_with_saved_report(fake_nvcc):
     logs = build.build(NAMES)
-    assert sorted(logs) == sorted(NAMES) and len(fake_nvcc) == 2
+    assert sorted(logs) == sorted(NAMES) and len(fake_nvcc) == len(NAMES)
     for name in NAMES:
         assert build.library_path(name).exists()
         assert "Used 40 registers" in build.saved_log(name)
-    assert build.build(NAMES) == {} and len(fake_nvcc) == 2
+    assert build.build(NAMES) == {} and len(fake_nvcc) == len(NAMES)
 
 
 def test_phase_build_reports_built_and_cached_libraries(fake_nvcc, capsys):

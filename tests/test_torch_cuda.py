@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 from mfs_tpu_torch.models.one_dim import benes_bernoulli  # noqa: E402
 from mfs_tpu_torch.one_dim.filtering import moment_filter_cms  # noqa: E402
 from mfs_tpu_torch.one_dim.quadrature import hankel_indices, moment_quadrature  # noqa: E402
+from mfs_tpu_torch.ops import posterior_kernel as pk  # noqa: E402
 from mfs_tpu_torch.ops import quadrature_kernel as qk  # noqa: E402
 from mfs_tpu_torch.sde.transitions import sde_cond_moments_tme_normal  # noqa: E402
 from mfs_tpu_torch.utils.gaussian import normal_raw_moments_all  # noqa: E402
@@ -26,6 +27,11 @@ pytestmark = pytest.mark.cuda
 def _k1():
     """K1's launches counted by the registry."""
     return counters().get("kernel.launches.k1", 0)
+
+
+def _post1d():
+    """The posterior update kernel's launches counted by the registry."""
+    return counters().get("kernel.launches.post1d", 0)
 
 
 @pytest.fixture
@@ -136,10 +142,119 @@ def test_kernel_raises_instead_of_falling_back(cuda):
     assert g.shape == ms.shape and bool(torch.isfinite(g).all())
 
 
+def _post1d_inputs(N, B, device):
+    """K1's rule at ``B`` trials, as the filters hand it to the update
+    (``(B, n)`` views of ``(n, B)`` storage), and the Beneš–Bernoulli
+    likelihood at its nodes; trial 7 has NaN moments, trial 11 a
+    likelihood of zero."""
+    ms = _mixture(N, B, N, device) if N <= 8 else _central_mixture(N, B, N, device)
+    ms[7] = float("nan")
+    mean = torch.linspace(-1.0, 1.0, B, dtype=torch.float64, device=device)
+    w, x = qk.moment_quadrature_fused(ms, mean, 1.0)
+    gen = torch.Generator(device=device).manual_seed(N)
+    ys = torch.bernoulli(torch.full((B,), 0.5, dtype=torch.float64, device=device),
+                         generator=gen)
+    p = benes_bernoulli(N=N, device=device).measurement_cond_pdf(ys[:, None], x)
+    p[11] = 0.0
+    return x, w, p
+
+
+@pytest.mark.parametrize("N", [4, 15])
+def test_post1d_matches_plain_version(cuda, N):
+    """The posterior update's kernel against its plain version on the same
+    card inputs (``_post1d_inputs``, B = 4,096, 2N moments), in the three
+    modes, one launch a call.  Trials 7 and 11 come out non-finite, and
+    every output is finite exactly where the plain version's is.  Finite
+    outputs within rtol 1e-12 of the size of the terms they sum, since
+    the two versions sum the nodes in another order: pdf_y and the scale
+    of their own size, the mean of ``sum_k |x_k| wp_k / pdf_y``, moment j
+    of ``sum_k |u_k|^j wp_k / pdf_y`` (an odd central moment is ~0 by
+    cancellation, a mean may be)."""
+    B = 4096
+    x, w, p = _post1d_inputs(N, B, cuda)
+    assert x.T.is_contiguous() and w.T.is_contiguous() and p.T.is_contiguous()
+    for mode in ("raw", "central", "scaled"):
+        before = _post1d()
+        got = pk.posterior_moments_1d(x, w, p, mode)
+        torch.cuda.synchronize()
+        assert _post1d() == before + 1
+        _assert_post1d_close(got, x, w, p, mode, 2 * N)
+        assert not bool(torch.isfinite(got[0][[7, 11]]).all(-1).any())
+
+
+def _assert_post1d_close(got, x, w, p, mode, num):
+    """The kernel's outputs ``got`` against the plain version's on the
+    same inputs: the same shapes, finite in the same places, and within
+    rtol 1e-12 of the size of the terms each sums (see
+    ``test_post1d_matches_plain_version``)."""
+    want = pk.posterior_moments_1d_plain(x, w, p, mode, num)
+    assert got[0].shape == (x.shape[0], num) and got[0].is_contiguous()
+    for g, h in zip(got, want):
+        assert g.shape == h.shape
+        assert torch.equal(torch.isfinite(g), torch.isfinite(h))
+    u = x if mode == "raw" else x - want[1][:, None]
+    u = u / want[2][:, None] if mode == "scaled" else u
+    sizes = [pk.posterior_moments_1d_plain(u.abs(), w, p, "raw", num)[0]]
+    if mode != "raw":
+        sizes.append(pk.posterior_moments_1d_plain(x.abs(), w, p, "raw", 2)[0][:, 1])
+    sizes += [h.abs() for h in want[len(sizes):]]
+    for g, h, size in zip(got, want, sizes):
+        ok = torch.isfinite(h)
+        assert bool(((g - h).abs() <= 1e-12 * size)[ok].all())
+
+
+def test_post1d_beyond_one_block_of_moments(cuda):
+    """More moments than the kernel's block of 64 accumulators: n = 40
+    nodes (beyond K1, as the f64 library route gives them) at 80 and 130
+    moments, B = 1,000 (not a whole number of thread blocks), in (n, B)
+    storage, in the three modes, one launch a call and as close to the
+    plain version as ``test_post1d_matches_plain_version`` asks."""
+    n, B = 40, 1000
+    gen = torch.Generator(device=cuda).manual_seed(40)
+    draw = lambda: torch.rand((n, B), dtype=torch.float64, device=cuda, generator=gen).T
+    x = torch.randn((n, B), dtype=torch.float64, device=cuda, generator=gen).T * 0.8
+    w, p = draw() + 0.05, draw()
+    w = w / w.sum(-1, keepdim=True)
+    for num in (80, 130):
+        for mode in ("raw", "central", "scaled"):
+            before = _post1d()
+            got = pk.posterior_moments_1d(x, w, p, mode, num)
+            torch.cuda.synchronize()
+            assert _post1d() == before + 1
+            _assert_post1d_close(got, x, w, p, mode, num)
+
+
+def test_post1d_gradient_matches_plain_autograd(cuda):
+    """The update's ``autograd.Function`` on CUDA tensors, n = 4, B = 256:
+    the forward launches the kernel though the inputs require grad, and
+    the gradient in nodes, weights and likelihood values, for random
+    cotangents on every output, equals autograd through the plain version
+    on the card (rtol 1e-12), in the three modes."""
+    x, w, p = (t[12:268] for t in _post1d_inputs(4, 4096, cuda))
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for mode in ("raw", "central", "scaled"):
+        cots = None
+        grads = []
+        for fn in (pk.posterior_moments_1d, lambda *a: pk.posterior_moments_1d_plain(*a, 8)):
+            leaves = [t.clone().requires_grad_(True) for t in (x, w, p)]
+            before = _post1d()
+            outs = fn(*leaves, mode)
+            if cots is None:
+                assert _post1d() == before + 1
+                cots = [torch.randn(o.shape, dtype=o.dtype, device=cuda, generator=gen)
+                        for o in outs]
+            loss = sum((o * c).sum() for o, c in zip(outs, cots))
+            grads.append(torch.autograd.grad(loss, leaves))
+        for g, h in zip(*grads):
+            assert bool(torch.isfinite(h).all())
+            torch.testing.assert_close(g, h, rtol=1e-12, atol=0.0)
+
+
 def test_filter_on_card_matches_cpu_plain_path(cuda):
     """Beneš N=4, B=8, T=20 central filter through K1 on the card vs the
-    same filter on the CPU (plain version): nell rtol 1e-10, and every
-    quadrature of the card run is one K1 launch."""
+    same filter on the CPU (plain version): nell rtol 1e-10, every
+    quadrature of the card run is one K1 launch and every update one
+    launch of the posterior kernel."""
     N, B = 4, 8
     rng = np.random.RandomState(0)
     ys = rng.binomial(1, 0.5, (20, B)).astype(np.float64)
@@ -148,12 +263,37 @@ def test_filter_on_card_matches_cpu_plain_path(cuda):
         model = benes_bernoulli(N=N, device=dev)
         trans = sde_cond_moments_tme_normal(model.drift, model.dispersion, model.dt, 2, N)
         ic = model.init_cond
-        before = _k1()
+        before, post_before = _k1(), _post1d()
         _, _, nell = moment_filter_cms(
             trans.cms, trans.mean, model.measurement_cond_pdf, ic.cms.expand(B, 2 * N),
             ic.mean.expand(B), torch.as_tensor(ys, device=dev), eigh_impl="auto")
         nells[dev] = nell.cpu()
         assert _k1() - before == (2 * 20 if dev == "cuda" else 0)
+        assert _post1d() - post_before == (20 if dev == "cuda" else 0)
+    np.testing.assert_allclose(nells["cuda"].numpy(), nells["cpu"].numpy(), rtol=1e-10)
+
+
+def test_filter_beyond_k1_on_card_matches_cpu_plain_path(cuda):
+    """Beneš N=33 (66 moments, past K1's 32 nodes and the posterior
+    kernel's block of 64 moments), B=8, T=2 (at T >= 3 the f64 rule loses
+    trials): the central filter on the card takes the f64 library route
+    and the posterior kernel, one launch a step and no K1, and its nell
+    matches the CPU's plain path (rtol 1e-10)."""
+    N, B, T = 33, 8, 2
+    ys = np.random.RandomState(0).binomial(1, 0.5, (T, B)).astype(np.float64)
+    nells = {}
+    for dev in ("cpu", "cuda"):
+        model = benes_bernoulli(N=N, device=dev)
+        trans = sde_cond_moments_tme_normal(model.drift, model.dispersion, model.dt, 2, N)
+        ic = model.init_cond
+        before, post_before = _k1(), _post1d()
+        _, _, nell = moment_filter_cms(
+            trans.cms, trans.mean, model.measurement_cond_pdf, ic.cms.expand(B, 2 * N),
+            ic.mean.expand(B), torch.as_tensor(ys, device=dev), eigh_impl="auto")
+        nells[dev] = nell.cpu()
+        assert _k1() == before
+        assert _post1d() - post_before == (T if dev == "cuda" else 0)
+    assert bool(torch.isfinite(nells["cpu"]).all())
     np.testing.assert_allclose(nells["cuda"].numpy(), nells["cpu"].numpy(), rtol=1e-10)
 
 
